@@ -25,14 +25,38 @@ Phases, each of which passes or makes the script exit non-zero:
 5. card against CPU: the same weights in fp32, 2 windows through the
    single-mouse forward on the card (kernels) and on the CPU (plain
    versions); the largest difference must stay within 1e-3 of the largest
-   CPU output.
+   CPU output;
+6. backward kernels: ``dw_spatial_dx``, ``dw_spatial_dw`` and
+   ``dw_temporal_dw`` against their plain versions at every shape of the
+   flagship training step (batch 32 x 16 frames) and at ragged shapes, in
+   bf16 and fp32. dx is held as the forward kernels are; dw (fp32) within
+   1e-5 of the largest value (+1e-5) of the plain version computed in
+   float64 from the same inputs. ``library_ms`` times
+   ``aten.convolution_backward`` of the grouped ``conv3d`` (cuDNN) asked
+   for the input or the weight gradient only;
+7. train: the flagship ``MouseModel`` (the config's mice_poisson loss and
+   AdamW, lr 2.4e-3 held constant, weight decay 0.05, EMA 0.999, seeded
+   random weights) takes 2 warm-up and 10 timed steps on one synthetic batch
+   of 32 clips made as ``bench.py`` makes it, then one ``val_step`` on the
+   EMA weights. Every loss must be finite, the last below the first, and
+   the launch counters must match the config: per step 9 + 1 (block 1 is
+   rematerialized) spatial forwards, 2 x 9 + 1 temporal forwards (the
+   temporal input gradient is the forward kernel), and 9 of each backward
+   kernel. One more step runs under ``torch.profiler``;
+8. card against CPU, training: the flagship weights in fp32, drop rates 0,
+   2 clips; one loss and backward on the card (kernels) and on the CPU
+   (plain versions). The loss within 1e-4 relative, every parameter's
+   gradient within 1e-3 of its tensor's largest CPU gradient, with a floor
+   of 1e-6 of the model's largest gradient (BN biases that feed another BN
+   have an analytically zero gradient).
 
-After the counted run, one more request runs under ``torch.profiler`` and
-the device time is summed by kernel. The script then prints the
-``{"kernels": [...]}`` line, the nvidia-smi line again, and last
+After the counted serving run, one more request runs under
+``torch.profiler`` and the device time is summed by kernel. The script then
+prints the ``{"kernels": [...]}`` line, the nvidia-smi line again, and last
 ``{"ok": true, "device": {...}}``. The full per-shape record
-(``chip_smoke.json``) and the profiler trace (``chip_smoke_trace.json``) go
-to ``--out``, by default ``build/chip_smoke/`` in the checkout.
+(``chip_smoke.json``) and the profiler traces (``chip_smoke_trace.json``,
+``chip_smoke_train_trace.json``) go to ``--out``, by default
+``build/chip_smoke/`` in the checkout.
 """
 
 from __future__ import annotations
@@ -47,6 +71,7 @@ import time
 from pathlib import Path
 
 from sensorium_tpu_torch import constants
+from sensorium_tpu_torch.utils.misc import get_lr
 
 REPO = Path(__file__).resolve().parent
 
@@ -79,6 +104,18 @@ FLAGSHIP_ARGUS = {
     "responses_processor": ("identity", {}),
 }
 
+# The training part of configs/true_batch_001.py:62-69 (lr = get_lr(3e-4, 32)).
+FLAGSHIP_TRAIN_ARGUS = {
+    **FLAGSHIP_ARGUS,
+    "loss": ("mice_poisson", {"log_input": False, "full": False, "eps": 1e-8}),
+    "optimizer": ("AdamW", {"lr": get_lr(3e-4, 32), "weight_decay": 0.05}),
+    "iter_size": 1,
+}
+EMA_DECAY = 0.999
+TRAIN_BATCH = 32
+WARMUP_STEPS = 2
+TIMED_STEPS = 10
+
 CHUNK = 32  # windows per chunk forward
 FRAMES = 16  # frames per window
 TRIAL_LENGTH = 300
@@ -97,6 +134,10 @@ PEAKS = {
 BF16_RTOL = 2.0**-8
 ATOL = 1e-5
 CPU_REL_TOL = 1e-3
+DW_REL_TOL = 1e-5  # weight gradients against float64: sums of up to 5e5 products
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL_TOL = 1e-3
+TRAIN_GRAD_FLOOR = 1e-6
 
 
 def fail(message: str) -> None:
@@ -327,35 +368,37 @@ def serve(record: dict, out_dir: Path) -> dict:
         flush=True,
     )
     record["serve"] = result
-    profile_request(predictor, trials[0], record, out_dir)
+    record["profile"] = profile(lambda: predictor.predict_trial(*trials[0], mouse_index=0), "one request",
+                                out_dir / "chip_smoke_trace.json")
     del predictor, model
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_request(predictor, trial, record: dict, out_dir: Path) -> None:
-    """Where one request's device time goes: torch.profiler over one more
-    request, kernels summed by name; the trace goes to ``out_dir``."""
+def profile(fn, label: str, trace: Path, top_n: int = 15) -> dict:
+    """Where one call's device time goes: ``fn`` once under torch.profiler,
+    kernels summed by name; the trace goes to ``trace``."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
     start = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        predictor.predict_trial(*trial, mouse_index=0)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - start) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top_n]
     rows = [{"kernel": e.key[:120], "count": e.count, "ms": e.self_device_time_total / 1e3,
              "share": e.self_device_time_total / busy_us if busy_us else 0.0} for e in top]
-    record["profile"] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3, "top_kernels": rows}
-    print(f"profile: one request under torch.profiler, wall {wall_us / 1e3:.1f} ms, "
+    print(f"profile: {label} under torch.profiler, wall {wall_us / 1e3:.1f} ms, "
           f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.1%} of wall)", flush=True)
     for r in rows:
         print(f"profile:   {r['ms']:9.2f} ms {r['share']:6.1%} x{r['count']:<5} {r['kernel']}", flush=True)
-    prof.export_chrome_trace(str(out_dir / "chip_smoke_trace.json"))
+    prof.export_chrome_trace(str(trace))
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3, "top_kernels": rows}
 
 
 def card_against_cpu(record: dict) -> None:
@@ -392,25 +435,289 @@ def card_against_cpu(record: dict) -> None:
         fail(f"card and CPU disagree: relative difference {rel}")
 
 
-def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
-    """One entry per kernel: sums over the calls of one flagship chunk forward, bf16."""
+def backward_cases() -> list[dict]:
+    """The backward kernels' calls of one flagship training step (grouped by
+    shape), then ragged shapes."""
+    cases = []
+    for shape in flagship_kernel_shapes():
+        batch = {"batch": (TRAIN_BATCH, FRAMES)}
+        if shape["kernel"] == "dw_spatial_fwd":
+            cases.append({**shape, **batch, "kernel": "dw_spatial_dx"})
+            cases.append({**shape, **batch, "kernel": "dw_spatial_dw"})
+        else:
+            cases.append({**shape, **batch, "kernel": "dw_temporal_dw"})
+    for hw in ((9, 11), (10, 12)):
+        for k in (3, 5):
+            for stride in (1, 2):
+                for kernel in ("dw_spatial_dx", "dw_spatial_dw"):
+                    cases.append({"kernel": kernel, "hw": hw, "c": 24, "stride": stride, "k": k, "blocks": [],
+                                  "batch": (2, 3)})
+            cases.append({"kernel": "dw_temporal_dw", "hw": hw, "c": 24, "k": k, "blocks": [], "batch": (2, 3)})
+    return cases
+
+
+def check_backward_kernels(peaks: tuple[float, float]) -> list[dict]:
+    """Phase 6: the backward kernels against their plain versions, timed."""
+    import torch
+
+    from sensorium_tpu_torch.ops import dw_kernels
+
+    bytes_per_s, ops_per_s = peaks
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    backward = torch.ops.aten.convolution_backward
+    rows = []
+    for case in backward_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            b, t = case["batch"]
+            h, w = case["hw"]
+            c, k, name = case["c"], case["k"], case["kernel"]
+            s = case.get("stride", 1)
+            x = torch.randn(b, t, h, w, c, device="cuda", generator=gen).to(dtype)
+            if name == "dw_temporal_dw":
+                dy = torch.randn(b, t, h, w, c, device="cuda", generator=gen).to(dtype)
+                wl = torch.empty(c, 1, k, 1, 1, device="cuda", dtype=dtype)
+                conv = {"stride": [1, 1, 1], "padding": [k // 2, 0, 0]}
+                run = lambda: dw_kernels.dw_temporal_dw(x, dy, k)  # noqa: E731
+                plain = lambda: dw_kernels.dw_temporal_dw_plain(x, dy, k)  # noqa: E731
+                ref = dw_kernels.dw_temporal_dw_plain(x.double(), dy.double(), k)
+                taps, mask = k, [False, True, False]
+            else:
+                oh, ow = dw_kernels.spatial_out_size(h, k, s), dw_kernels.spatial_out_size(w, k, s)
+                dy = torch.randn(b, t, oh, ow, c, device="cuda", generator=gen).to(dtype)
+                wt = (torch.randn(k, k, c, device="cuda", generator=gen) / k).to(dtype)
+                wl = wt.permute(2, 0, 1)[:, None, None].contiguous()  # (C, 1, 1, k, k)
+                conv = {"stride": [1, s, s], "padding": [0, k // 2, k // 2]}
+                taps = k * k
+                if name == "dw_spatial_dx":
+                    run = lambda: dw_kernels.dw_spatial_dx(dy, wt, s, (h, w))  # noqa: E731
+                    plain = lambda: dw_kernels.dw_spatial_dx_plain(dy, wt, s, (h, w))  # noqa: E731
+                    ref = dw_kernels.dw_spatial_dx_plain(dy.float(), wt.float(), s, (h, w))
+                    mask = [True, False, False]
+                else:
+                    run = lambda: dw_kernels.dw_spatial_dw(x, dy, k, s)  # noqa: E731
+                    plain = lambda: dw_kernels.dw_spatial_dw_plain(x, dy, k, s)  # noqa: E731
+                    ref = dw_kernels.dw_spatial_dw_plain(x.double(), dy.double(), k, s)
+                    mask = [False, True, False]
+            x_ncdhw, dy_ncdhw = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+            library = lambda: backward(  # noqa: E731
+                dy_ncdhw, x_ncdhw, wl, None, conv["stride"], conv["padding"], [1, 1, 1], False, [0, 0, 0], c, mask
+            )
+            y = run()
+            torch.cuda.synchronize()
+            if y.shape != ref.shape:
+                fail(f"{name} {case}: shape {tuple(y.shape)} vs plain {tuple(ref.shape)}")
+            err = (y.to(ref.dtype) - ref).abs()
+            if name == "dw_spatial_dx":
+                rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+                ok = bool(torch.all(err <= ATOL + rtol * ref.abs()))
+                out_bytes = y.numel() * y.element_size()
+                in_bytes = (dy.numel() + wt.numel()) * dy.element_size()
+            else:
+                ok = bool(err.max() <= DW_REL_TOL * ref.abs().max() + DW_REL_TOL)
+                out_bytes = y.numel() * 4
+                in_bytes = (x.numel() + dy.numel()) * x.element_size()
+            row = {
+                "kernel": name,
+                "dtype": str(dtype).replace("torch.", ""),
+                "shape": [b, t, h, w, c],
+                "stride": s,
+                "k": k,
+                "blocks": case["blocks"],
+                "max_abs_err": float(err.max()),
+                "max_abs_ref": float(ref.abs().max()),
+                "ok": ok,
+            }
+            del err, ref
+            nbytes = in_bytes + out_bytes
+            ops = 2 * taps * dy.numel()
+            row["bytes"] = nbytes
+            row["bytes_ms"], row["ops_ms"] = nbytes / bytes_per_s * 1e3, ops / ops_per_s * 1e3
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+            row["ms"] = cuda_ms(run)
+            row["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
+            row["library_ms"] = cuda_ms(library)
+            rows.append(row)
+            print(
+                f"kernel {name:<16} {row['dtype']:<8} {str(row['shape']):<28} s={s} k={k} "
+                f"blocks={row['blocks']} err={row['max_abs_err']:.3g} (max |ref| {row['max_abs_ref']:.3g}) ok={ok} "
+                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, {nbytes / 1e9:.3f} GB)",
+                flush=True,
+            )
+            del x, dy, y
+            torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} backward kernel checks disagree with their plain versions: {bad}")
+    return rows
+
+
+def synthetic_batch(batch: int):
+    """One batch made as bench.py makes it: uniform 0-255 video, gamma(1.5, 1)
+    responses of every mouse's padded width, one-hot mouse ``i % 10``."""
+    import numpy as np
+
+    from sensorium_tpu_torch.data.datasets import MiceBatch
+
+    rng = np.random.default_rng(SEED)
+    inputs = rng.uniform(0, 255, (batch, 5, FRAMES, 64, 64)).astype(np.float32)
+    targets = rng.gamma(1.5, 1.0, (batch, max(constants.num_neurons), FRAMES)).astype(np.float32)
+    weights = np.zeros((batch, constants.num_mice), np.float32)
+    weights[np.arange(batch), np.arange(batch) % constants.num_mice] = 1.0
+    return MiceBatch(inputs=inputs, targets=targets, weights=weights)
+
+
+def expected_train_launches() -> dict:
+    """Kernel launches of one flagship train step, from the config."""
+    params = FLAGSHIP_NN_MODULE[1]
+    blocks, remat = len(params["core_features"]), len(params["remat_blocks"])
+    return {"dw_spatial_fwd": blocks + remat, "dw_temporal_fwd": 2 * blocks + remat,
+            "dw_spatial_dx": blocks, "dw_spatial_dw": blocks, "dw_temporal_dw": blocks}
+
+
+def train(record: dict, out_dir: Path) -> dict:
+    """Phase 7: flagship training steps through MouseModel, then a val_step."""
+    import numpy as np
+    import torch
+
+    from sensorium_tpu_torch.engine.model import MouseModel
+    from sensorium_tpu_torch.ops import dw_kernels
+
+    start = time.perf_counter()
+    model = MouseModel(FLAGSHIP_TRAIN_ARGUS, device="cuda")
+    model.set_ema(EMA_DECAY)
+    state = model.build_state(seed=SEED, learning_rate=get_lr(3e-4, TRAIN_BATCH))
+    batch = synthetic_batch(TRAIN_BATCH)
+    torch.cuda.synchronize()
+    print(f"train: flagship MouseModel bf16 (AdamW lr {get_lr(3e-4, TRAIN_BATCH)}, wd 0.05, EMA {EMA_DECAY}), "
+          f"built in {time.perf_counter() - start:.1f} s", flush=True)
+
+    start = time.perf_counter()
+    losses = [model.train_step(batch) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - start
+    torch.cuda.reset_peak_memory_stats()
+    for key in dw_kernels.LAUNCHES:
+        dw_kernels.LAUNCHES[key] = 0
+    start = time.perf_counter()
+    losses += [model.train_step(batch) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = dict(dw_kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+
+    per_step = expected_train_launches()
+    result = {
+        "batch": TRAIN_BATCH,
+        "timed_steps": TIMED_STEPS,
+        "seconds": elapsed,
+        "seconds_per_step": elapsed / TIMED_STEPS,
+        "clips_per_second": TIMED_STEPS * TRAIN_BATCH / elapsed,
+        "warmup_seconds": warm_s,
+        "peak_memory_gb": peak_gb,
+        "losses": losses,
+        "launches": launches,
+        "launches_per_step_expected": per_step,
+    }
+    print(f"train: {TIMED_STEPS} steps of batch {TRAIN_BATCH} in {elapsed:.3f} s: "
+          f"{result['seconds_per_step']:.4f} s/step, {result['clips_per_second']:.1f} clips/s "
+          f"(2 warm-up steps {warm_s:.2f} s), peak memory {peak_gb:.2f} GB", flush=True)
+    print("train: losses " + " ".join(f"{v:.6f}" for v in losses), flush=True)
+    print(f"train: launches {launches} over {TIMED_STEPS} steps, expected {per_step} per step", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"train: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall: first {losses[0]}, last {losses[-1]}")
+    for key, count in per_step.items():
+        if launches[key] != count * TIMED_STEPS:
+            fail(f"train: {key} launched {launches[key]} times in {TIMED_STEPS} steps, expected {count} per step")
+
+    val_loss, prediction, _, _ = model.val_step(batch)
+    val_loss = float(val_loss)
+    expected = (constants.num_mice, TRAIN_BATCH, max(constants.num_neurons), FRAMES)
+    if tuple(prediction.shape) != expected or not np.isfinite(val_loss) or not bool(torch.isfinite(prediction).all()):
+        fail(f"train: val_step on the EMA weights gave loss {val_loss}, prediction {tuple(prediction.shape)}")
+    result["val_loss_ema"] = val_loss
+    print(f"train: val_step on the EMA weights: loss {val_loss:.6f}, prediction {expected}", flush=True)
+    del prediction
+    result["profile"] = profile(lambda: model.train_step(batch), "one train step",
+                                out_dir / "chip_smoke_train_trace.json", top_n=20)
+    record["train"] = result
+    del model, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_card_against_cpu(record: dict) -> None:
+    """Phase 8: one fp32 loss and backward at full width and depth, 2 clips,
+    drop rates 0, on the card (kernels) and on the CPU (plain versions)."""
+    import torch
+
+    from sensorium_tpu_torch.engine.model import MouseModel
+
+    name, params = FLAGSHIP_NN_MODULE
+    argus = {**FLAGSHIP_TRAIN_ARGUS,
+             "nn_module": (name, {**params, "dtype": "float32", "drop_rate": 0.0, "drop_path_rate": 0.0})}
+    batch = synthetic_batch(2)
+    out = {}
+    for device in ("cuda", "cpu"):
+        start = time.perf_counter()
+        model = MouseModel(argus, device=device)
+        model.build_state(seed=SEED)
+        loss = float(model.train_step(batch))
+        grads = {k: p.grad.detach().cpu() for k, p in model.state.model.named_parameters()}
+        out[device] = (loss, grads)
+        print(f"train card vs cpu: {device} loss {loss:.7g} in {time.perf_counter() - start:.1f} s", flush=True)
+        del model
+    (loss_card, grads_card), (loss_cpu, grads_cpu) = out["cuda"], out["cpu"]
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    largest = max(g.abs().max().item() for g in grads_cpu.values())
+    ratios = {}
+    for key, g in grads_cpu.items():
+        bound = max(TRAIN_GRAD_REL_TOL * g.abs().max().item(), TRAIN_GRAD_FLOOR * largest)
+        ratio = (grads_card[key] - g).abs().max().item() / bound
+        ratios[key] = ratio if math.isfinite(ratio) else math.inf
+    worst_name = max(ratios, key=ratios.get)
+    worst = ratios[worst_name]
+    result = {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_relative": loss_rel,
+              "largest_gradient": largest, "worst_gradient_over_bound": worst, "worst_tensor": worst_name,
+              "tensors": len(grads_cpu)}
+    record["train_card_vs_cpu"] = result
+    print(f"train card vs cpu: fp32, 2 clips, loss relative difference {loss_rel:.3g} (tolerance {TRAIN_LOSS_RTOL}); "
+          f"worst gradient at {worst:.3g} of its bound ({worst_name}) over {len(grads_cpu)} tensors", flush=True)
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        fail(f"train: card and CPU losses differ by {loss_rel} relative")
+    if not worst <= 1.0:
+        fail(f"train: the gradient of {worst_name} differs beyond its bound ({worst} x)")
+
+
+def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict) -> list[dict]:
+    """One entry per kernel: sums over the calls of one flagship training step
+    (batch 32 x 16 frames, the shapes of a 32-window chunk forward), bf16.
+    ``launches`` counts the timed train steps, ``launches_serve`` the counted
+    serving run."""
     replaces = {
-        "dw_spatial_fwd": "sensorium_tpu/ops/pallas_dw.py:115",
-        "dw_temporal_fwd": "sensorium_tpu/ops/pallas_dw.py:355",
+        "dw_spatial_fwd": ("dw_conv.cu", "sensorium_tpu/ops/pallas_dw.py:115"),
+        "dw_temporal_fwd": ("dw_conv.cu", "sensorium_tpu/ops/pallas_dw.py:355"),
+        "dw_spatial_dx": ("dw_conv_bwd.cu", "sensorium_tpu/ops/pallas_dw.py:313"),
+        "dw_spatial_dw": ("dw_conv_bwd.cu", "sensorium_tpu/ops/pallas_dw.py:216"),
+        "dw_temporal_dw": ("dw_conv_bwd.cu", "sensorium_tpu/ops/pallas_dw.py:404"),
     }
     out = []
-    for name in ("dw_spatial_fwd", "dw_temporal_fwd"):
+    for name, (source, replaced) in replaces.items():
         flagship = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16" and r["blocks"]]
         mine = [r for r in rows if r["kernel"] == name]
 
         def total(key):
             return sum(r[key] * len(r["blocks"]) for r in flagship)
 
-        out.append({
+        entry = {
             "name": name,
             "route": "cuda",
-            "source": "sensorium_tpu_torch/csrc/dw_conv.cu",
-            "replaces": replaces[name],
+            "source": f"sensorium_tpu_torch/csrc/{source}",
+            "replaces": replaced,
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"),
@@ -418,8 +725,11 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
             "bound_ms": total("bound_ms"),
             "bound_by": "bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
             "library_ms": total("library_ms"),
-            "scope": "sum over the 9 calls of one flagship chunk forward (32 windows x 16 frames), bf16",
-        })
+            "scope": "sum over the 9 blocks' calls of one flagship train step (32 clips x 16 frames), bf16; "
+                     f"launches over {TIMED_STEPS} train steps",
+            "launches_serve": serve_launches[name],
+        }
+        out.append(entry)
     return out
 
 
@@ -462,10 +772,14 @@ def main() -> int:
     args.out.mkdir(parents=True, exist_ok=True)
     rows = check_kernels(peaks)
     record["kernels"] = rows
-    launches = serve(record, args.out)
+    serve_launches = serve(record, args.out)
     card_against_cpu(record)
+    backward_rows = check_backward_kernels(peaks)
+    record["backward_kernels"] = backward_rows
+    train_launches = train(record, args.out)
+    train_card_against_cpu(record)
 
-    summary = kernel_summary(rows, launches)
+    summary = kernel_summary(rows + backward_rows, train_launches, serve_launches)
     record["summary"] = summary
     (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 

@@ -1,3 +1,3 @@
-"""Moving weights into the port."""
+"""Moving weights and training state into the port."""
 
-from sensorium_tpu_torch.compat.jax_weights import from_jax_variables  # noqa: F401
+from sensorium_tpu_torch.compat.jax_weights import from_jax_state, from_jax_variables  # noqa: F401

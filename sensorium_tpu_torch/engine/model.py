@@ -1,0 +1,180 @@
+"""The training engine's model object: ``MouseModel``.
+
+Counterpart of ``sensorium_tpu/engine/model.py`` (construction from a
+config's ``argus_params``, EMA, distillation, the train / val / predict
+steps). Not yet here: ``fit``, ``init_from_checkpoint`` and checkpoint I/O.
+
+    model = MouseModel(argus_params)           # on the card; device="cpu" to ask for the CPU
+    model.set_ema(0.999)
+    model.build_state(seed=0, learning_rate=2.4e-3)
+    loss = model.train_step(batch)             # a MiceBatch of numpy arrays
+    loss, prediction, targets, weights = model.val_step(batch)
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable
+
+import numpy as np
+import torch
+from torch import nn
+
+from sensorium_tpu_torch.data.datasets import MiceBatch
+from sensorium_tpu_torch.engine.losses import get_loss
+from sensorium_tpu_torch.engine.optimizers import get_optimizer
+from sensorium_tpu_torch.engine.state import TrainState
+from sensorium_tpu_torch.engine.steps import make_predict_step, make_train_step, make_val_step
+from sensorium_tpu_torch.models.dwiseneuro import neuron_validity_mask
+from sensorium_tpu_torch.models.registry import get_nn_module
+from sensorium_tpu_torch.utils.device import resolve_device
+
+
+class MouseModel:
+    """Registry-built model, training state and step functions.
+
+    ``params`` is the config's ``argus_params`` dict: ``nn_module``,
+    ``loss``, ``optimizer``, ``frame_stack``, ``inputs_processor``,
+    ``iter_size``, optionally ``grad_clip``. The network itself is built by
+    ``build_state`` from its seed.
+    """
+
+    def __init__(self, params: dict, device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.params = params
+        self.nn_name, self.nn_params = params["nn_module"]
+        loss_name, loss_params = params.get("loss", ("mice_poisson", {}))
+        outputs = self.nn_params.get("readout_outputs")
+        neuron_mask = neuron_validity_mask(outputs) if outputs is not None else None
+        self.loss_fn = get_loss(loss_name, loss_params, neuron_mask=neuron_mask)
+        self.optimizer_spec = params.get("optimizer", ("AdamW", {"lr": 1e-3}))
+        self.grad_clip = float(params.get("grad_clip", 0.0) or 0.0)
+        self.iter_size = int(params.get("iter_size", 1))
+
+        self.ema_decay = 0.0
+        self.distill_ratio = 0.0
+        self.teacher_module: nn.Module | None = None
+
+        self.nn_module: nn.Module | None = None
+        self.state: TrainState | None = None
+        self.schedule: Callable[[int], float] | None = None
+        self._train_step = None
+        self._val_step = make_val_step(self.loss_fn)
+        self._predict_steps: dict[int | None, Callable] = {}
+
+    # ---------------------------------------------------------------- setup
+
+    def example_input(self, batch_size: int = 1) -> np.ndarray:
+        frame_stack = self.params.get("frame_stack", {"size": 16})
+        size = self.params.get("inputs_processor", ("stack_inputs", {}))[1].get("size", (64, 64))
+        in_channels = self.nn_params.get("in_channels", 5)
+        # The processor's size is (width, height); batch arrays are (..., height, width).
+        return np.zeros((batch_size, in_channels, frame_stack["size"], size[1], size[0]), np.float32)
+
+    def set_ema(self, decay: float) -> None:
+        """Set the EMA decay, before or after ``build_state``; with a state,
+        the EMA copy is made from the live model or dropped to match."""
+        decay = float(decay)
+        if decay == self.ema_decay:
+            return
+        self.ema_decay = decay
+        self._train_step = None
+        if self.state is None:
+            return
+        if decay > 0.0 and self.state.ema_model is None:
+            self.state.ema_model = self._ema_copy(self.state.model)
+        elif decay == 0.0:
+            self.state.ema_model = None
+
+    def set_distill(self, teacher_module: nn.Module, ratio: float) -> None:
+        """Attach a frozen teacher whose predictions fill the unlabeled cells."""
+        self.teacher_module = teacher_module.to(self.device).eval().requires_grad_(False)
+        self.distill_ratio = float(ratio)
+        self._train_step = None
+
+    @staticmethod
+    def _ema_copy(model: nn.Module) -> nn.Module:
+        return copy.deepcopy(model).requires_grad_(False)
+
+    def build_state(self, seed: int = 0, learning_rate: float | Callable[[int], float] | None = None) -> TrainState:
+        """Initialize the network from ``seed``, the optimizer and (with a
+        decay set) the EMA copy. ``learning_rate`` is a float or a schedule
+        of the update count; None takes the config's ``lr``."""
+        self.nn_module = get_nn_module(self.nn_name, self.nn_params, device=self.device,
+                                       generator=torch.Generator().manual_seed(seed)).train()
+        self.schedule = learning_rate if callable(learning_rate) else None
+        first_lr = learning_rate(0) if callable(learning_rate) else learning_rate
+        opt_name, opt_params = self.optimizer_spec
+        optimizer = get_optimizer(opt_name, opt_params, self.nn_module.parameters(), learning_rate=first_lr)
+        ema_model = self._ema_copy(self.nn_module) if self.ema_decay > 0.0 else None
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.state = TrainState(step=0, model=self.nn_module, optimizer=optimizer, ema_model=ema_model,
+                                generator=generator)
+        self._train_step = None
+        return self.state
+
+    # ---------------------------------------------------------------- steps
+
+    def _ensure_train_step(self) -> Callable:
+        if self.state is None:
+            raise RuntimeError("Call build_state() before training")
+        if self._train_step is None:
+            self._train_step = make_train_step(
+                self.loss_fn,
+                ema_decay=self.ema_decay,
+                iter_size=self.iter_size,
+                schedule=self.schedule,
+                grad_clip=self.grad_clip,
+                distill_ratio=self.distill_ratio,
+                teacher_model=self.teacher_module,
+            )
+        return self._train_step
+
+    def _stage_inputs(self, inputs) -> torch.Tensor:
+        """The batch inputs on the device. A bf16 model (with no teacher, or a
+        bf16 one) gets them cast to bf16 on the host before the copy: its
+        first op is that cast, round-to-nearest-even either way, so only the
+        copy halves. A tensor already on the device passes as it is."""
+        if isinstance(inputs, torch.Tensor) and inputs.device == self.device:
+            return inputs
+        inputs = torch.as_tensor(np.asarray(inputs, np.float32))
+        teacher_dtype = getattr(self.teacher_module, "dtype", torch.bfloat16)
+        if getattr(self.nn_module, "dtype", None) == torch.bfloat16 and teacher_dtype == torch.bfloat16:
+            inputs = inputs.to(torch.bfloat16)
+        return inputs.to(self.device)
+
+    def _stage(self, batch: MiceBatch) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        def to_device(a):
+            return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
+
+        return self._stage_inputs(batch.inputs), to_device(batch.targets), to_device(batch.weights)
+
+    def train_step(self, batch: MiceBatch) -> torch.Tensor:
+        """One optimizer update; returns the loss as a 0-d tensor on the device."""
+        step = self._ensure_train_step()
+        return step(self.state, *self._stage(batch))
+
+    def val_step(self, batch: MiceBatch):
+        """``(loss, prediction, targets, weights)`` on the eval (EMA) weights;
+        the staged targets and weights come back for the metrics."""
+        if self.state is None:
+            raise RuntimeError("Call build_state() before validation")
+        inputs, targets, weights = self._stage(batch)
+        loss, prediction = self._val_step(self.state.eval_model, inputs, targets, weights)
+        return loss, prediction, targets, weights
+
+    def predict(self, inputs, mouse_index: int | None = None) -> torch.Tensor:
+        """Eval forward on the eval (EMA) weights. A single clip (4-D input)
+        gives (N, T) for one mouse or (M, N_max, T) for all."""
+        if self.state is None:
+            raise RuntimeError("Call build_state() before predict()")
+        if mouse_index not in self._predict_steps:
+            self._predict_steps[mouse_index] = make_predict_step(mouse_index)
+        inputs = torch.as_tensor(np.asarray(inputs, np.float32))
+        squeeze = inputs.ndim == 4
+        if squeeze:
+            inputs = inputs[None]
+        prediction = self._predict_steps[mouse_index](self.state.eval_model, inputs.to(self.device))
+        if squeeze:
+            return prediction[0] if mouse_index is not None else prediction[:, 0]
+        return prediction

@@ -1,0 +1,112 @@
+"""Train, validation and predict steps.
+
+Counterpart of ``sensorium_tpu/engine/steps.py``. One train step:
+
+* ``iter_size`` microbatches, which must divide the batch evenly (as in
+  JAX): each chunk runs the all-mice training forward (drawing its own
+  dropout and drop-path masks), casts the predictions to fp32, takes the
+  loss and backpropagates ``loss / iter_size``, so the gradients are the
+  chunks' mean and the loss the sum of ``chunk loss / iter_size``. BN
+  running statistics carry from chunk to chunk, as sequential forwards do;
+* with a teacher, its eval forward runs under ``no_grad`` and
+  ``inject_distill_targets`` fills the zero-weight cells before the loss;
+* optional clipping (``torch.nn.utils.clip_grad_norm_``), then the lr of
+  the update count, the optimizer step, and the EMA over parameters and BN
+  statistics.
+
+Mixed precision is the model's own: fp32 master parameters cast to bf16
+where the JAX model casts them. No autocast and no GradScaler (bf16 keeps
+fp32's exponent range).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import nn
+
+from sensorium_tpu_torch.engine.ema import ema_tensors, ema_update
+from sensorium_tpu_torch.engine.losses import inject_distill_targets
+from sensorium_tpu_torch.engine.state import TrainState
+
+
+def make_train_step(
+    loss_fn: Callable,
+    ema_decay: float = 0.0,
+    iter_size: int = 1,
+    schedule: Callable[[int], float] | None = None,
+    grad_clip: float = 0.0,
+    distill_ratio: float = 0.0,
+    teacher_model: nn.Module | None = None,
+) -> Callable:
+    """Returns ``step(state, inputs, targets, weights) -> loss``, which
+    updates ``state`` in place and returns the loss as a 0-d fp32 tensor on
+    the model's device (reading it waits for the card)."""
+    use_distill = distill_ratio > 0.0 and teacher_model is not None
+
+    def chunk_loss(state: TrainState, inputs, targets, weights):
+        prediction = state.model(inputs, generator=state.generator).float()
+        if use_distill:
+            with torch.no_grad():
+                teacher_pred = teacher_model(inputs).float()
+            targets, weights = inject_distill_targets(targets, weights, teacher_pred, distill_ratio)
+        return loss_fn(prediction, targets, weights)
+
+    def step(state: TrainState, inputs, targets, weights) -> torch.Tensor:
+        batch = inputs.shape[0]
+        if batch % iter_size:
+            raise ValueError(
+                f"batch_size {batch} is not divisible by iter_size {iter_size}: gradient-accumulation "
+                "microbatches are equal-size chunks; pick batch_size % iter_size == 0"
+            )
+        model, optimizer = state.model, state.optimizer
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        chunk = batch // iter_size
+        total = torch.zeros((), dtype=torch.float32, device=inputs.device)
+        for i in range(iter_size):
+            part = slice(i * chunk, (i + 1) * chunk)
+            loss = chunk_loss(state, inputs[part], targets[part], weights[part])
+            if iter_size > 1:
+                loss = loss / iter_size
+            loss.backward()
+            total += loss.detach()
+        if grad_clip > 0.0:
+            torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
+        if schedule is not None:
+            lr = float(schedule(state.step))
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+        optimizer.step()
+        if ema_decay > 0.0:
+            ema_update(ema_tensors(state.ema_model), ema_tensors(model), ema_decay)
+        state.step += 1
+        return total
+
+    return step
+
+
+def make_val_step(loss_fn: Callable) -> Callable:
+    """``step(model, inputs, targets, weights) -> (loss, prediction)``: the
+    all-mice eval forward (pass ``state.eval_model``, the EMA weights when
+    there are any), predictions in fp32."""
+
+    @torch.inference_mode()
+    def step(model: nn.Module, inputs, targets, weights):
+        model.eval()
+        prediction = model(inputs).float()
+        return loss_fn(prediction, targets, weights), prediction
+
+    return step
+
+
+def make_predict_step(mouse_index: int | None = None) -> Callable:
+    """``step(model, inputs) -> prediction``: the eval forward in fp32."""
+
+    @torch.inference_mode()
+    def step(model: nn.Module, inputs):
+        model.eval()
+        return model(inputs, mouse_index=mouse_index).float()
+
+    return step

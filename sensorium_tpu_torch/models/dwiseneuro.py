@@ -1,4 +1,4 @@
-"""DwiseNeuro, the Sensorium 2023 winning architecture: the eval forward.
+"""DwiseNeuro, the Sensorium 2023 winning architecture: eval and training forward.
 
 Counterpart of ``sensorium_tpu/models/dwiseneuro.py``, module for module.
 Parameters and BN statistics keep the names and shapes of the JAX tree
@@ -20,9 +20,15 @@ Structure:
   cortex: 3x grouped-1x1 ShuffleLayer
   stacked per-mouse readouts -> Softplus(beta)
 
-Drop-path, channel dropout and rematerialization are training-only and not
-ported yet: the constructor accepts their settings so that a config's
-``nn_module`` dict loads as it is, and training mode raises in BatchNorm.
+Training mode (``model.train()``) uses BN batch statistics and draws its
+masks from the ``generator`` passed to ``forward``: drop-path on each block's
+residual branch at ``drop_path_rate * i / num_blocks`` and on each cortex
+layer at the full rate, channel dropout on the cortex output (one mask per
+mouse on the all-mice path). ``remat`` / ``remat_blocks`` rerun the chosen
+blocks in the backward pass (``torch.utils.checkpoint``) instead of keeping
+their activations; a block's drop-path mask is drawn before the block, so the
+recompute uses the same mask, and its BatchNorms keep their first forward's
+shift and update their running statistics once.
 """
 
 from __future__ import annotations
@@ -30,9 +36,11 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sensorium_tpu_torch.ops.conv import (
     depthwise_conv_spatial,
@@ -44,6 +52,7 @@ from sensorium_tpu_torch.ops.conv import (
 from sensorium_tpu_torch.ops.norm import BatchNorm
 from sensorium_tpu_torch.ops.pe import position_encoding_3d
 from sensorium_tpu_torch.ops.shuffle import channel_shuffle
+from sensorium_tpu_torch.ops.stochastic import channel_dropout, drop_path, drop_path_mask
 
 
 def kaiming_normal_out(shape: Sequence[int], fan_out: int, generator: torch.Generator) -> nn.Parameter:
@@ -92,8 +101,8 @@ class BatchNormAct(nn.Module):
         self.bn = BatchNorm(features, dtype=dtype)
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(x)
+    def forward(self, x: torch.Tensor, recompute: bool = False) -> torch.Tensor:
+        x = self.bn(x, recompute)
         return F.silu(x) if self.act else x
 
 
@@ -150,7 +159,7 @@ class InvertedResidual3d(nn.Module):
         self.pwl_bn = BatchNormAct(out_features, act=False, dtype=dtype)
         self.bn_sc = BatchNormAct(out_features, act=False, dtype=dtype)
 
-    def shortcut(self, x: torch.Tensor) -> torch.Tensor:
+    def shortcut(self, x: torch.Tensor, recompute: bool = False) -> torch.Tensor:
         """Parameter-free shortcut: nearest spatial downsample + channel tile.
 
         When the stride divides H and W, the nearest index i*H // out_h is
@@ -168,46 +177,69 @@ class InvertedResidual3d(nn.Module):
                 x = x.index_select(2, idx_h).index_select(3, idx_w)
         if c != self.out_features:
             x = tile_channels(x, self.out_features)
-        return self.bn_sc(x)
+        return self.bn_sc(x, recompute)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = self.shortcut(x)
-        x = self.pw_bn(pointwise(x, self.pw_kernel.to(self.dtype)))
-        x = self.spatial_bn(depthwise_conv_spatial(x, self.spatial_dw_kernel, self.spatial_stride))
-        x = self.temporal_bn(depthwise_conv_temporal(x, self.temporal_dw_kernel))
+    def forward(self, x: torch.Tensor, drop_mask: torch.Tensor | None = None,
+                recompute: bool = False) -> torch.Tensor:
+        """``drop_mask``: the (B, 1, 1, 1, 1) drop-path mask of the residual
+        branch, or None; ``recompute``: this is the backward pass's rerun of
+        the last forward (see ``BatchNorm``)."""
+        shortcut = self.shortcut(x, recompute)
+        x = self.pw_bn(pointwise(x, self.pw_kernel.to(self.dtype)), recompute)
+        x = self.spatial_bn(depthwise_conv_spatial(x, self.spatial_dw_kernel, self.spatial_stride), recompute)
+        x = self.temporal_bn(depthwise_conv_temporal(x, self.temporal_dw_kernel), recompute)
         x = self.se(x)
-        x = self.pwl_bn(pointwise(x, self.pwl_kernel.to(self.dtype)))
+        x = self.pwl_bn(pointwise(x, self.pwl_kernel.to(self.dtype)), recompute)
+        if drop_mask is not None:
+            x = x * drop_mask
         return x + shortcut
+
+
+def checkpointed(block: InvertedResidual3d, x: torch.Tensor, drop_mask: torch.Tensor | None) -> torch.Tensor:
+    """``block(x, drop_mask)`` without keeping its activations: the backward
+    pass reruns it with ``recompute=True``."""
+    calls = []
+
+    def run(x, drop_mask):
+        calls.append(None)
+        return block(x, drop_mask, recompute=len(calls) > 1)
+
+    return checkpoint(run, x, drop_mask, use_reentrant=False, preserve_rng_state=False)
 
 
 class ShuffleLayer(nn.Module):
     """Grouped 1x1 conv over (B, T, C) + BN/SiLU + channel shuffle + shortcut."""
 
-    def __init__(self, in_features: int, out_features: int, groups: int, dtype: torch.dtype,
-                 generator: torch.Generator):
+    def __init__(self, in_features: int, out_features: int, groups: int, drop_path_rate: float,
+                 dtype: torch.dtype, generator: torch.Generator):
         super().__init__()
         cout_g = out_features // groups
         self.out_features = out_features
         self.groups = groups
+        self.drop_path_rate = drop_path_rate
         self.dtype = dtype
         self.kernel = kaiming_normal_out((groups, in_features // groups, cout_g), cout_g, generator)
         self.bn = BatchNormAct(out_features, dtype=dtype)
         self.bn_sc = BatchNormAct(out_features, act=False, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         y = self.bn(grouped_pointwise(x, self.kernel.to(self.dtype)))
         y = channel_shuffle(y, self.groups)
+        if self.training:
+            y = drop_path(y, self.drop_path_rate, generator)
         shortcut = x if x.shape[-1] == self.out_features else tile_channels(x, self.out_features)
         return y + self.bn_sc(shortcut)
 
 
 class DwiseNeuro(nn.Module):
-    """Core + cortex + stacked per-mouse readouts, eval forward.
+    """Core + cortex + stacked per-mouse readouts.
 
-    ``forward(inputs, mouse_index=None)``: inputs (B, 5, T, H, W) float32.
-    ``mouse_index`` None -> (num_mice, B, max(readout_outputs), T) padded
-    with exact zeros; otherwise (B, readout_outputs[mouse_index], T). Both
-    are fp32.
+    ``forward(inputs, mouse_index=None, generator=None)``: inputs
+    (B, 5, T, H, W) float32. ``mouse_index`` None -> (num_mice, B,
+    max(readout_outputs), T) padded with exact zeros; otherwise
+    (B, readout_outputs[mouse_index], T). Both are fp32. In training mode
+    with a drop rate above 0, ``generator`` (on the inputs' device) is
+    required.
 
     Weights are kaiming-normal draws from ``generator`` (a fresh
     ``torch.Generator`` seeded with 0 when none is given), made on the CPU;
@@ -252,14 +284,18 @@ class DwiseNeuro(nn.Module):
         self.learnable_softplus = learnable_softplus
         self.dtype = dtype
         self.readout_pad_multiple = readout_pad_multiple
-        # Training-only settings, kept for the training slice.
         self.drop_rate, self.drop_path_rate = drop_rate, drop_path_rate
-        self.remat, self.remat_blocks = remat, remat_blocks
         self._pe_cache: dict[tuple, torch.Tensor] = {}
 
         self.stem_kernel = kaiming_normal_out((in_channels, features[0]), features[0], generator)
         self.stem_bn = BatchNormAct(features[0], act=False, dtype=dtype)
         self.num_blocks = len(features)
+        if not remat:
+            self.remat_set = frozenset()
+        elif isinstance(remat_blocks, int):
+            self.remat_set = frozenset(range(self.num_blocks if remat_blocks < 0 else remat_blocks))
+        else:
+            self.remat_set = frozenset(int(i) for i in remat_blocks)
         for i in range(self.num_blocks):
             out_features = features[i + 1] if i + 1 < self.num_blocks else features[i]
             self.add_module(
@@ -272,7 +308,7 @@ class DwiseNeuro(nn.Module):
         self.num_cortex = len(cortex_features)
         prev = features[-1]
         for i, width in enumerate(cortex_features):
-            self.add_module(f"cortex_{i}", ShuffleLayer(prev, width, groups, dtype, generator))
+            self.add_module(f"cortex_{i}", ShuffleLayer(prev, width, groups, drop_path_rate, dtype, generator))
             prev = width
 
         cin_g = prev // groups
@@ -309,16 +345,22 @@ class DwiseNeuro(nn.Module):
             self._pe_cache[key] = torch.from_numpy(table).to(device=x.device, dtype=x.dtype)
         return self._pe_cache[key]
 
-    def core(self, x: torch.Tensor) -> torch.Tensor:
+    def core(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         x = self.stem_bn(pointwise(x, self.stem_kernel.to(self.dtype)))
         for i in range(self.num_blocks):
             x = x + self._position_encoding(x)
-            x = getattr(self, f"block_{i}")(x)
+            block = getattr(self, f"block_{i}")
+            rate = self.drop_path_rate * i / self.num_blocks
+            mask = drop_path_mask(x, rate, generator) if self.training and rate > 0.0 else None
+            if self.training and i in self.remat_set:
+                x = checkpointed(block, x, mask)
+            else:
+                x = block(x, mask)
         return x
 
-    def cortex(self, x: torch.Tensor) -> torch.Tensor:
+    def cortex(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         for i in range(self.num_cortex):
-            x = getattr(self, f"cortex_{i}")(x)
+            x = getattr(self, f"cortex_{i}")(x, generator)
         return x
 
     def _softplus(self, logits: torch.Tensor, beta: torch.Tensor | None) -> torch.Tensor:
@@ -332,21 +374,38 @@ class DwiseNeuro(nn.Module):
         flat = torch.cat([grouped[:, :, g, : sizes[g]] for g in range(self.groups)], dim=-1)
         return flat.transpose(1, 2)
 
-    def forward(self, inputs: torch.Tensor, mouse_index: int | None = None) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, mouse_index: int | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.training and generator is None and (self.drop_rate > 0.0 or self.drop_path_rate > 0.0):
+            raise ValueError("a training forward with drop rates above 0 needs a torch.Generator")
         x = inputs.permute(0, 2, 3, 4, 1).to(self.dtype)  # (B, T, H, W, C)
-        x = self.core(x)
+        x = self.core(x, generator)
         x = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype)  # (B, T, C)
-        x = self.cortex(x)
-        xg = x.reshape(*x.shape[:-1], self.groups, x.shape[-1] // self.groups)  # (B, T, G, C/G)
+        x = self.cortex(x, generator)
+        dropout = self.training and self.drop_rate > 0.0
 
         if mouse_index is not None:
+            if dropout:
+                x = channel_dropout(x, self.drop_rate, generator)
+            xg = x.reshape(*x.shape[:-1], self.groups, x.shape[-1] // self.groups)  # (B, T, G, C/G)
             kernel = self.readout_kernel[mouse_index].to(self.dtype)
             logits = einsum_f32("btgc,gcp->btgp", xg, kernel) + self.readout_bias[mouse_index]
             beta = self.readout_softplus_beta[mouse_index] if self.learnable_softplus else None
             return self._assemble_flat(self._softplus(logits, beta), mouse_index)
 
         kernel = self.readout_kernel.to(self.dtype)
-        logits = einsum_f32("btgc,mgcp->mbtgp", xg, kernel) + self.readout_bias[:, None, None]
+        if dropout:
+            # Each readout draws its own mask on the shared cortex output
+            # (every reference Readout holds its own Dropout1d).
+            m = self.num_mice
+            xm = x.expand(m, *x.shape).reshape(m * x.shape[0], *x.shape[1:])
+            xm = channel_dropout(xm, self.drop_rate, generator)
+            xm = xm.reshape(m, *x.shape[:-1], self.groups, x.shape[-1] // self.groups)
+            logits = einsum_f32("mbtgc,mgcp->mbtgp", xm, kernel)
+        else:
+            xg = x.reshape(*x.shape[:-1], self.groups, x.shape[-1] // self.groups)
+            logits = einsum_f32("btgc,mgcp->mbtgp", xg, kernel)
+        logits = logits + self.readout_bias[:, None, None]
         beta = self.readout_softplus_beta[:, None, None, None, None] if self.learnable_softplus else None
         pred = self._softplus(logits, beta)
         padded = []
@@ -354,3 +413,11 @@ class DwiseNeuro(nn.Module):
             flat = self._assemble_flat(pred[mouse], mouse)  # (B, N_m, T)
             padded.append(F.pad(flat, (0, 0, 0, self.max_neurons - flat.shape[1])))
         return torch.stack(padded, dim=0)  # (M, B, N_max, T)
+
+
+def neuron_validity_mask(readout_outputs: Sequence[int]) -> np.ndarray:
+    """(M, N_max) float32 mask of real (non-padded) neurons per mouse."""
+    mask = np.zeros((len(readout_outputs), max(readout_outputs)), dtype=np.float32)
+    for i, n in enumerate(readout_outputs):
+        mask[i, :n] = 1.0
+    return mask

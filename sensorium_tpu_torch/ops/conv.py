@@ -6,8 +6,9 @@ depthwise (k,1,1) pieces:
 
 * pointwise and grouped 1x1 convs are matrix products over the channel axis,
   accumulated in fp32 and rounded once to the input dtype;
-* the depthwise convs go to the hand-written CUDA kernels of
-  ``ops/dw_kernels.py`` (their plain versions for CPU tensors).
+* the depthwise convs go to the autograd Functions of ``ops/dw_kernels.py``:
+  hand-written CUDA kernels forward and backward (their plain versions for
+  CPU tensors).
 
 All tensors are channels-last: 3-D data is (B, T, H, W, C), 1-D data is
 (B, T, C).
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from sensorium_tpu_torch.ops.dw_kernels import dw_spatial_fwd, dw_temporal_fwd
+from sensorium_tpu_torch.ops.dw_kernels import dw_spatial, dw_temporal
 
 
 def set_matmul_policy() -> None:
@@ -71,8 +72,10 @@ def depthwise_conv_spatial(x: torch.Tensor, kernel: torch.Tensor, stride: int = 
 
     x: (B, T, H, W, C), kernel: (k, k, C), cast to x's dtype. The output's
     spatial size is floor((S + 2*(k//2) - k) / stride) + 1, as torch Conv3d.
+    The kernel's gradient is rounded to x's dtype before the cast back to
+    the parameter's, as in the JAX package.
     """
-    return dw_spatial_fwd(x, kernel.to(x.dtype), stride)
+    return dw_spatial(x, kernel.to(x.dtype), stride)
 
 
 def depthwise_conv_temporal(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -80,4 +83,4 @@ def depthwise_conv_temporal(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tens
 
     x: (B, T, H, W, C), kernel: (k, C), cast to x's dtype.
     """
-    return dw_temporal_fwd(x, kernel.to(x.dtype))
+    return dw_temporal(x, kernel.to(x.dtype))

@@ -1,19 +1,27 @@
-"""Depthwise-conv forward kernels (CUDA, ``csrc/dw_conv.cu``) and their plain versions.
+"""Depthwise-conv kernels (CUDA, ``csrc/dw_conv.cu`` and ``csrc/dw_conv_bwd.cu``),
+their plain versions, and the autograd Functions that join them.
 
-Counterpart of ``sensorium_tpu/ops/pallas_dw.py`` (forward only; the backward
-kernels come with the training slice). Layout is channels-last:
+Counterpart of ``sensorium_tpu/ops/pallas_dw.py``. Layout is channels-last:
 
 * ``dw_spatial_fwd(x, w, stride)``: x (B, T, H, W, C), w (k, k, C), stride 1
   or 2, torch "same" padding k // 2, output (B, T, OH, OW, C) with
   OH = (H + 2 * (k // 2) - k) // stride + 1;
 * ``dw_temporal_fwd(x, w)``: x (B, T, H, W, C), w (k, C) with k odd, "same"
-  padding over T.
+  padding over T;
+* ``dw_spatial_dx(dy, w, stride, hw)``: the input gradient of the spatial
+  conv, (B, T, H, W, C) in dy's dtype;
+* ``dw_spatial_dw(x, dy, k, stride)`` and ``dw_temporal_dw(x, dy, k)``: the
+  weight gradients, (k, k, C) and (k, C) in fp32. The temporal input
+  gradient is ``dw_temporal_fwd(dy, w.flip(0))`` (odd k).
+
+``DwSpatial`` and ``DwTemporal`` are the autograd Functions: each saves
+``(x, w)`` as the JAX custom VJPs do, and returns dx in x's dtype and dw
+rounded to w's dtype.
 
 A wrapper given CPU tensors computes the plain version. Given CUDA tensors it
 launches the kernel on the current stream or raises; it never falls back.
-``LAUNCHES`` counts the kernel launches, and nothing else. The kernels have no
-backward yet, so the wrappers refuse inputs that would need a gradient: run
-them under ``torch.inference_mode()`` or ``torch.no_grad()``.
+``LAUNCHES`` counts the wrapper calls that launched a kernel, and nothing
+else.
 """
 
 from __future__ import annotations
@@ -25,80 +33,121 @@ import torch.nn.functional as F
 
 from sensorium_tpu_torch.ops import _build
 
-LAUNCHES = {"dw_spatial_fwd": 0, "dw_temporal_fwd": 0}
+LAUNCHES = {name: 0 for name in ("dw_spatial_fwd", "dw_temporal_fwd", "dw_spatial_dx", "dw_spatial_dw",
+                                 "dw_temporal_dw")}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INT32_MAX = 2**31 - 1
 _ENTRIES: dict[str, ctypes._CFuncPtr] = {}
+# Entry point -> (library, number of pointer arguments, number of int64 sizes).
+_SIGNATURES = {
+    "dw_spatial_fwd": ("dw_conv", 3, 6),
+    "dw_temporal_fwd": ("dw_conv", 3, 5),
+    "dw_spatial_dx": ("dw_conv_bwd", 3, 6),
+    "dw_spatial_dw": ("dw_conv_bwd", 4, 7),
+    "dw_temporal_dw": ("dw_conv_bwd", 4, 6),
+}
+# Kernel sizes the weight-gradient kernels are compiled for.
+_GRAD_W_KS = (3, 5)
+# Channels per reduction block and position lanes per block (dw_conv_bwd.cu).
+_LANES, _ROWS = 32, 8
 
 
 def spatial_out_size(size: int, k: int, stride: int) -> int:
     return (size + 2 * (k // 2) - k) // stride + 1
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32 for bf16 and fp32 data, float64 for float64 (gradcheck)."""
+    return torch.promote_types(torch.float32, dtype)
+
+
 def _check_spatial(x: torch.Tensor, w: torch.Tensor, stride: int) -> None:
     if x.ndim != 5:
-        raise ValueError(f"dw_spatial_fwd: x must be (B, T, H, W, C), got {tuple(x.shape)}")
+        raise ValueError(f"dw_spatial: x must be (B, T, H, W, C), got {tuple(x.shape)}")
     k = w.shape[0]
     if w.ndim != 3 or w.shape[1] != k or w.shape[2] != x.shape[-1] or k % 2 == 0:
         raise ValueError(
-            f"dw_spatial_fwd: w must be (k, k, C) with odd k and C={x.shape[-1]}, "
-            f"got {tuple(w.shape)}"
+            f"dw_spatial: w must be (k, k, C) with odd k and C={x.shape[-1]}, got {tuple(w.shape)}"
         )
     if stride not in (1, 2):
-        raise NotImplementedError(f"dw_spatial_fwd: stride {stride} not supported (1 or 2)")
+        raise NotImplementedError(f"dw_spatial: stride {stride} not supported (1 or 2)")
 
 
 def _check_temporal(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.ndim != 5:
-        raise ValueError(f"dw_temporal_fwd: x must be (B, T, H, W, C), got {tuple(x.shape)}")
+        raise ValueError(f"dw_temporal: x must be (B, T, H, W, C), got {tuple(x.shape)}")
     if w.ndim != 2 or w.shape[1] != x.shape[-1]:
-        raise ValueError(
-            f"dw_temporal_fwd: w must be (k, C) with C={x.shape[-1]}, got {tuple(w.shape)}"
-        )
+        raise ValueError(f"dw_temporal: w must be (k, C) with C={x.shape[-1]}, got {tuple(w.shape)}")
     if w.shape[0] % 2 == 0:
         # Even k with (k//2, k//2) padding would give T + 1 frames; the
         # TPU kernel refuses it too (pallas_dw.py _dw_temporal_fwd).
-        raise NotImplementedError(
-            f"dw_temporal_fwd supports odd temporal kernels only, got k={w.shape[0]}"
+        raise NotImplementedError(f"dw_temporal_fwd supports odd temporal kernels only, got k={w.shape[0]}")
+
+
+def _check_cuda_operands(name: str, **operands: torch.Tensor) -> None:
+    (first_name, first), *rest = operands.items()
+    if first.device.type != "cuda":
+        raise RuntimeError(
+            f"{name}: {first_name} on {first.device}; the kernel takes CUDA tensors, the plain version CPU ones"
         )
+    for other_name, t in rest:
+        if t.device != first.device:
+            raise RuntimeError(f"{name}: {other_name} on {t.device}, {first_name} on {first.device}")
+    dtypes = [t.dtype for t in operands.values()]
+    if first.dtype not in _SUFFIX or any(d != first.dtype for d in dtypes):
+        raise TypeError(f"{name}: operands must be float32 or bfloat16, all the same, got {dtypes}")
+    if not all(t.is_contiguous() for t in operands.values()):
+        raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _check_no_grad(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            f"{name} has no backward kernel yet; call it under torch.no_grad() "
-            "or torch.inference_mode()"
-        )
-
-
-def _check_cuda_operands(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise RuntimeError(f"{name}: x on {x.device}; the kernel takes CUDA tensors, the plain version CPU ones")
-    if w.device != x.device:
-        raise RuntimeError(f"{name}: w on {w.device}, x on {x.device}")
-    if x.dtype not in _SUFFIX or w.dtype != x.dtype:
-        raise TypeError(f"{name}: x and w must both be float32 or bfloat16, got {x.dtype} / {w.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError(f"{name}: x and w must be contiguous")
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
 
 
 def _entry(name: str, dtype: torch.dtype):
     """The C entry point ``<name>_<f32|bf16>`` with its signature declared:
-    three pointers, the sizes as int64, then the stream."""
+    the pointers, the sizes as int64, then the stream."""
     symbol = f"{name}_{_SUFFIX[dtype]}"
     if symbol not in _ENTRIES:
-        fn = getattr(_build.load("dw_conv"), symbol)
+        library, pointers, sizes = _SIGNATURES[name]
+        fn = getattr(_build.load(library), symbol)
         fn.restype = ctypes.c_int
-        sizes = 6 if name == "dw_spatial_fwd" else 5
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * sizes + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int64] * sizes + [ctypes.c_void_p]
         _ENTRIES[symbol] = fn
     return _ENTRIES[symbol]
 
 
-def _raise_on(name: str, status: int) -> None:
+def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = _entry(name, dtype)(*args, stream)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {status}")
+    LAUNCHES[name] += 1
+
+
+def _slabs(device: torch.device, channels: int, positions: int) -> int:
+    """Workspace slabs of a weight-gradient reduction: about eight blocks per
+    SM, and at least 16 positions per position lane of a block."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-channels // _LANES)
+    return max(1, min(-(-8 * sms // tiles), positions // (_ROWS * 16), 65535))
+
+
+# ----------------------------------------------------------------- plain versions
+
+
+def _spatial_valid(xp: torch.Tensor, w: torch.Tensor, stride: int, oh: int, ow: int) -> torch.Tensor:
+    """Shifted multiply-adds of an already padded input, in the accumulation dtype."""
+    k = w.shape[0]
+    acc_dtype = _acc_dtype(xp.dtype)
+    xp, wf = xp.to(acc_dtype), w.to(acc_dtype)
+    acc = torch.zeros((*xp.shape[:2], oh, ow, xp.shape[-1]), dtype=acc_dtype, device=xp.device)
+    for di in range(k):
+        for dj in range(k):
+            tap = xp[:, :, di : di + stride * (oh - 1) + 1 : stride, dj : dj + stride * (ow - 1) + 1 : stride]
+            acc += tap * wf[di, dj]
+    return acc
 
 
 def dw_spatial_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -106,16 +155,45 @@ def dw_spatial_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch
     _check_spatial(x, w, stride)
     k = w.shape[0]
     pad = k // 2
-    b, t, h, wd, c = x.shape
-    oh, ow = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
-    xp = F.pad(x.float(), (0, 0, pad, pad, pad, pad))
-    wf = w.float()
-    acc = torch.zeros((b, t, oh, ow, c), dtype=torch.float32, device=x.device)
+    oh, ow = spatial_out_size(x.shape[2], k, stride), spatial_out_size(x.shape[3], k, stride)
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    return _spatial_valid(xp, w, stride, oh, ow).to(x.dtype)
+
+
+def dw_spatial_dx_plain(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int, int]) -> torch.Tensor:
+    """The JAX construction (``pallas_dw._dw_spatial_vjp_bwd``): dilate the
+    cotangent by the stride, pad it with ``k-1-pad`` on the left and so that
+    the output is exactly ``hw`` on the right, and run a stride-1 valid conv
+    with the taps flipped."""
+    k = w.shape[0]
+    pad = k // 2
+    h, wd = hw
+    if stride > 1:
+        b, t, oh, ow, c = dy.shape
+        dyd = dy.new_zeros((b, t, (oh - 1) * stride + 1, (ow - 1) * stride + 1, c))
+        dyd[:, :, ::stride, ::stride] = dy
+    else:
+        dyd = dy
+    left = k - 1 - pad
+    right_h = h + k - 1 - dyd.shape[2] - left
+    right_w = wd + k - 1 - dyd.shape[3] - left
+    dyp = F.pad(dyd, (0, 0, left, right_w, left, right_h))
+    return _spatial_valid(dyp, w.flip(0, 1), 1, h, wd).to(dy.dtype)
+
+
+def dw_spatial_dw_plain(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """Tap-by-tap sums of x_pad * dy, accumulated in fp32 (float64 for float64)."""
+    pad = k // 2
+    oh, ow = dy.shape[2], dy.shape[3]
+    acc_dtype = _acc_dtype(x.dtype)
+    xp = F.pad(x.to(acc_dtype), (0, 0, pad, pad, pad, pad))
+    g = dy.to(acc_dtype)
+    dw = torch.empty((k, k, x.shape[-1]), dtype=acc_dtype, device=x.device)
     for di in range(k):
         for dj in range(k):
             tap = xp[:, :, di : di + stride * (oh - 1) + 1 : stride, dj : dj + stride * (ow - 1) + 1 : stride]
-            acc += tap * wf[di, dj]
-    return acc.to(x.dtype)
+            dw[di, dj] = (tap * g).sum(dim=(0, 1, 2, 3))
+    return dw
 
 
 def dw_temporal_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -124,48 +202,177 @@ def dw_temporal_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     k = w.shape[0]
     pad = k // 2
     t = x.shape[1]
-    xp = F.pad(x.float(), (0, 0, 0, 0, 0, 0, pad, pad))
-    wf = w.float()
-    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    acc_dtype = _acc_dtype(x.dtype)
+    xp = F.pad(x.to(acc_dtype), (0, 0, 0, 0, 0, 0, pad, pad))
+    wf = w.to(acc_dtype)
+    acc = torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
     for dt in range(k):
         acc += xp[:, dt : dt + t] * wf[dt]
     return acc.to(x.dtype)
 
 
+def dw_temporal_dw_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """Tap-by-tap sums of x_pad * dy over (B, T, H, W), accumulated in fp32."""
+    pad = k // 2
+    t = x.shape[1]
+    acc_dtype = _acc_dtype(x.dtype)
+    xp = F.pad(x.to(acc_dtype), (0, 0, 0, 0, 0, 0, pad, pad))
+    g = dy.to(acc_dtype)
+    dw = torch.empty((k, x.shape[-1]), dtype=acc_dtype, device=x.device)
+    for dt in range(k):
+        dw[dt] = (xp[:, dt : dt + t] * g).sum(dim=(0, 1, 2, 3))
+    return dw
+
+
+# ---------------------------------------------------------------------- wrappers
+
+
 def dw_spatial_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """Depthwise (1, k, k) conv over (H, W); CUDA kernel, or the plain version on CPU."""
     _check_spatial(x, w, stride)
-    _check_no_grad("dw_spatial_fwd", x, w)
-    if x.device.type == "cpu" and w.device.type == "cpu":
+    if _on_cpu(x, w):
         return dw_spatial_plain(x, w, stride)
-    _check_cuda_operands("dw_spatial_fwd", x, w)
+    _check_cuda_operands("dw_spatial_fwd", x=x, w=w)
     k = w.shape[0]
     b, t, h, wd, c = x.shape
     oh, ow = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
     if b * t * oh > _INT32_MAX or ow * c > _INT32_MAX or h * wd * c > _INT32_MAX:
         raise ValueError(f"dw_spatial_fwd: shape {tuple(x.shape)} exceeds the kernel's grid")
     y = torch.empty((b, t, oh, ow, c), dtype=x.dtype, device=x.device)
-    fn = _entry("dw_spatial_fwd", x.dtype)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _raise_on("dw_spatial_fwd", fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b * t, h, wd, c, k, stride, stream))
-    LAUNCHES["dw_spatial_fwd"] += 1
+    _launch("dw_spatial_fwd", x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(), b * t, h, wd, c, k, stride)
     return y
 
 
 def dw_temporal_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise (k, 1, 1) conv over T; CUDA kernel, or the plain version on CPU."""
     _check_temporal(x, w)
-    _check_no_grad("dw_temporal_fwd", x, w)
-    if x.device.type == "cpu" and w.device.type == "cpu":
+    if _on_cpu(x, w):
         return dw_temporal_plain(x, w)
-    _check_cuda_operands("dw_temporal_fwd", x, w)
+    _check_cuda_operands("dw_temporal_fwd", x=x, w=w)
     b, t, h, wd, c = x.shape
     length = h * wd * c
     if t > _INT32_MAX or length // 256 >= _INT32_MAX:
         raise ValueError(f"dw_temporal_fwd: shape {tuple(x.shape)} exceeds the kernel's grid")
     y = torch.empty_like(x)
-    fn = _entry("dw_temporal_fwd", x.dtype)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _raise_on("dw_temporal_fwd", fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, t, length, c, w.shape[0], stream))
-    LAUNCHES["dw_temporal_fwd"] += 1
+    _launch("dw_temporal_fwd", x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(),
+            b, t, length, c, w.shape[0])
     return y
+
+
+def dw_spatial_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int, int]) -> torch.Tensor:
+    """dL/dx of ``dw_spatial_fwd`` for an input of spatial size ``hw``; CUDA
+    kernel, or the plain version on CPU."""
+    h, wd = hw
+    k = w.shape[0]
+    b, t, oh, ow, c = dy.shape
+    if (oh, ow) != (spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)):
+        raise ValueError(f"dw_spatial_dx: dy {tuple(dy.shape)} is not the output of an input of size {hw}")
+    _check_spatial(dy, w, stride)
+    if _on_cpu(dy, w):
+        return dw_spatial_dx_plain(dy, w, stride, hw)
+    _check_cuda_operands("dw_spatial_dx", dy=dy, w=w)
+    if b * t * h > _INT32_MAX or wd * c > _INT32_MAX or oh * ow * c > _INT32_MAX:
+        raise ValueError(f"dw_spatial_dx: shape {tuple(dy.shape)} exceeds the kernel's grid")
+    dx = torch.empty((b, t, h, wd, c), dtype=dy.dtype, device=dy.device)
+    _launch("dw_spatial_dx", dy.dtype, dy.device, dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
+            b * t, h, wd, c, k, stride)
+    return dx
+
+
+def _check_grad_w(name: str, x: torch.Tensor, dy: torch.Tensor, k: int, positions: int) -> None:
+    _check_cuda_operands(name, x=x, dy=dy)
+    if k not in _GRAD_W_KS:
+        raise NotImplementedError(f"{name}: the kernel is compiled for k in {_GRAD_W_KS}, got k={k}")
+    if positions + 65535 > _INT32_MAX or x.shape[-1] * k * k > _INT32_MAX:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the kernel's grid")
+
+
+def dw_spatial_dw(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """dL/dw of ``dw_spatial_fwd``, (k, k, C) fp32; CUDA kernel (two
+    deterministic passes), or the plain version on CPU."""
+    b, t, h, wd, c = x.shape
+    if dy.shape != (b, t, spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride), c):
+        raise ValueError(f"dw_spatial_dw: dy {tuple(dy.shape)} is not the output of x {tuple(x.shape)}")
+    if _on_cpu(x, dy):
+        return dw_spatial_dw_plain(x, dy, k, stride)
+    positions = dy.numel() // c
+    _check_grad_w("dw_spatial_dw", x, dy, k, positions)
+    slabs = _slabs(x.device, c, positions)
+    workspace = torch.empty((slabs, k * k, c), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, k, c), dtype=torch.float32, device=x.device)
+    _launch("dw_spatial_dw", x.dtype, x.device, x.data_ptr(), dy.data_ptr(), workspace.data_ptr(), dw.data_ptr(),
+            b * t, h, wd, c, k, stride, slabs)
+    return dw
+
+
+def dw_temporal_dw(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """dL/dw of ``dw_temporal_fwd``, (k, C) fp32; CUDA kernel (two
+    deterministic passes), or the plain version on CPU."""
+    if dy.shape != x.shape:
+        raise ValueError(f"dw_temporal_dw: dy {tuple(dy.shape)} and x {tuple(x.shape)} differ")
+    if _on_cpu(x, dy):
+        return dw_temporal_dw_plain(x, dy, k)
+    b, t, h, wd, c = x.shape
+    positions = x.numel() // c
+    _check_grad_w("dw_temporal_dw", x, dy, k, positions)
+    slabs = _slabs(x.device, c, positions)
+    workspace = torch.empty((slabs, k, c), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, c), dtype=torch.float32, device=x.device)
+    _launch("dw_temporal_dw", x.dtype, x.device, x.data_ptr(), dy.data_ptr(), workspace.data_ptr(), dw.data_ptr(),
+            b, t, h * wd, c, k, slabs)
+    return dw
+
+
+# ----------------------------------------------------------------------- autograd
+
+
+class DwSpatial(torch.autograd.Function):
+    """``dw_spatial_fwd`` with its backward kernels (``pallas_dw.dw_spatial``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return dw_spatial_fwd(x, w, stride)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = dw_spatial_dx(dy, w, ctx.stride, (x.shape[2], x.shape[3])).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = dw_spatial_dw(x, dy, w.shape[0], ctx.stride).to(w.dtype)
+        return dx, dw, None
+
+
+class DwTemporal(torch.autograd.Function):
+    """``dw_temporal_fwd`` with its backward (``pallas_dw.dw_temporal``): dx is
+    the forward kernel with the taps reversed, dw its own kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return dw_temporal_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = dw_temporal_fwd(dy, w.flip(0)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = dw_temporal_dw(x, dy, w.shape[0]).to(w.dtype)
+        return dx, dw
+
+
+def dw_spatial(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Differentiable depthwise (1, k, k) conv (``DwSpatial``)."""
+    return DwSpatial.apply(x, w, stride)
+
+
+def dw_temporal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable depthwise (k, 1, 1) conv (``DwTemporal``)."""
+    return DwTemporal.apply(x, w)

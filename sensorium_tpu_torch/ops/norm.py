@@ -1,17 +1,78 @@
-"""Batch normalization over the trailing channel axis, eval mode.
+"""Batch normalization over the trailing channel axis.
 
 Counterpart of ``sensorium_tpu/ops/norm.py``. Parameters (``scale``,
 ``bias``) and running statistics (``mean``, ``var``) are fp32 whatever the
-compute dtype, and keep the names of the JAX tree. Eval normalizes with the
-running statistics in fp32 and casts once to the compute dtype. Training
-mode (the shifted one-pass batch variance of the JAX module) is not ported
-yet and raises.
+compute dtype, and keep the names of the JAX tree. Both modes compute in
+fp32 (float64 for float64 inputs) and cast once to the compute dtype.
+
+* Eval normalizes with the running statistics.
+* Training normalizes with the batch statistics: the mean, and the biased
+  variance from the *shifted* one-pass form ``E[(x-c)^2] - (E[x]-c)^2`` with
+  ``c`` the running mean (no gradient), which keeps two-pass accuracy when
+  |mean|/std is large. The running statistics then move with torch's
+  momentum 0.1, ``running_var`` with the unbiased variance ``var * n/(n-1)``.
+
+Training runs as one ``torch.autograd.Function`` (``batch_norm_train``): it
+saves the input in its own dtype and the per-channel fp32 ``mean`` and
+``inv_std``, where autograd of the formula would keep two fp32 copies of
+every activation (7.5 GB for block 0's ``pw_bn`` at batch 32). Its backward is
+the standard biased-BN backward, which is exact here: with ``c`` constant,
+d var / dx = 2 (x - E[x]) / n.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+MOMENTUM = 0.1  # torch's: running = (1 - m) * running + m * batch
+
+
+def _stats_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(torch.float32, dtype)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, shift, eps, dtype):
+        dims = tuple(range(x.ndim - 1))
+        sd = _stats_dtype(x.dtype)
+        mean = x.mean(dim=dims, dtype=sd)
+        centred = x.to(sd) - shift  # one temporary, squared in place
+        var = centred.square_().mean(dim=dims) - (mean - shift).square()
+        del centred
+        inv_std = torch.rsqrt(var + eps)
+        inv = inv_std * scale
+        y = torch.addcmul(bias - mean * inv, x.to(sd), inv).to(dtype)
+        ctx.save_for_backward(x, mean, inv_std, scale)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, inv_std, scale = ctx.saved_tensors
+        dims = tuple(range(x.ndim - 1))
+        sd = mean.dtype
+        g = dy.to(sd)
+        xhat = (x.to(sd) - mean) * inv_std
+        dbias = g.sum(dim=dims)
+        dscale = (g * xhat).sum(dim=dims)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            n = x.numel() // x.shape[-1]
+            dx = ((g - dbias / n) - xhat * (dscale / n)) * (inv_std * scale)
+            dx = dx.to(x.dtype)
+        return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None, None, None
+
+
+def batch_norm_train(x, scale, bias, shift, eps: float, dtype: torch.dtype):
+    """Training-mode BN: ``(y, batch mean, biased batch variance)``.
+
+    ``shift`` is the running mean, used only to condition the variance; the
+    statistics come back in fp32 (float64 for float64 inputs) without a
+    gradient.
+    """
+    return _BatchNormTrain.apply(x, scale, bias, shift, eps, dtype)
 
 
 class BatchNorm(nn.Module):
@@ -24,12 +85,27 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self._shift: torch.Tensor | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm training mode is not ported yet; call .eval() on the model"
-            )
-        inv = torch.rsqrt(self.var + self.eps) * self.scale
-        # One multiply-add per element in fp32, cast once at the end.
-        return torch.addcmul(self.bias - self.mean * inv, x.float(), inv).to(self.dtype)
+    def forward(self, x: torch.Tensor, recompute: bool = False) -> torch.Tensor:
+        """``recompute`` marks a second run of the last training forward (a
+        rematerialized block in the backward pass): it normalizes with the
+        same shift and leaves the running statistics alone, as JAX's
+        ``nn.remat`` discards the recompute's mutation."""
+        if not self.training:
+            inv = torch.rsqrt(self.var + self.eps) * self.scale
+            # One multiply-add per element in fp32, cast once at the end.
+            return torch.addcmul(self.bias - self.mean * inv, x.float(), inv).to(self.dtype)
+        if recompute:
+            if self._shift is None:
+                raise RuntimeError("BatchNorm recompute without a training forward before it")
+            shift = self._shift
+        else:
+            shift = self._shift = self.mean.clone()
+        y, mean, var = batch_norm_train(x, self.scale, self.bias, shift, self.eps, self.dtype)
+        if not recompute:
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                self.mean.copy_((1 - MOMENTUM) * self.mean + MOMENTUM * mean)
+                self.var.copy_((1 - MOMENTUM) * self.var + MOMENTUM * (var * (n / max(n - 1, 1))))
+        return y

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on a card.
+"""The port's CUDA kernels against their plain versions, and the port on the
+card against the port on the CPU.
 
 This file imports no JAX, so that it runs where only PyTorch is installed:
 
@@ -16,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from sensorium_tpu_torch.data.datasets import MiceBatch
+from sensorium_tpu_torch.engine.model import MouseModel
 from sensorium_tpu_torch.infer.predictor import Predictor
 from sensorium_tpu_torch.models.registry import get_nn_module
 from sensorium_tpu_torch.ops import dw_kernels
@@ -100,3 +103,78 @@ def test_predictor_on_the_card_matches_the_cpu(cuda):
         model = get_nn_module("dwiseneuro", TINY, device=device, generator=torch.Generator().manual_seed(3))
         out[device] = Predictor(model, ARGUS, chunk_size=8, device=device).predict_trial(video, behavior, pupil, 1)
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("hw", [(9, 11), (10, 12)])
+def test_backward_kernels_match_plain(cuda, hw, k, stride, dtype):
+    """dx within one bf16 rounding (fp32: atol 1e-5) of the plain version in
+    fp32; dw within 1e-5 of its largest value (+1e-5) of the plain version in
+    float64 from the same inputs."""
+    rng = np.random.default_rng(12)
+    x = rand(rng, 2, 3, *hw, 24).to(cuda, dtype)
+    w = (rand(rng, k, k, 24) / k).to(cuda, dtype)
+    oh, ow = (dw_kernels.spatial_out_size(s, k, stride) for s in hw)
+    dy = rand(rng, 2, 3, oh, ow, 24).to(cuda, dtype)
+    dyt = rand(rng, 2, 3, *hw, 24).to(cuda, dtype)
+    before = dict(dw_kernels.LAUNCHES)
+    dx = dw_kernels.dw_spatial_dx(dy, w, stride, hw)
+    dw = dw_kernels.dw_spatial_dw(x, dy, k, stride)
+    dwt = dw_kernels.dw_temporal_dw(x, dyt, k)
+    torch.cuda.synchronize()
+    for name in ("dw_spatial_dx", "dw_spatial_dw", "dw_temporal_dw"):
+        assert dw_kernels.LAUNCHES[name] == before[name] + 1, name
+    assert dx.dtype == dtype and dw.dtype == dwt.dtype == torch.float32
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(dx.float(), dw_kernels.dw_spatial_dx_plain(dy.float(), w.float(), stride, hw),
+                               rtol=rtol, atol=1e-5)
+    for got, ref in ((dw, dw_kernels.dw_spatial_dw_plain(x.double(), dy.double(), k, stride)),
+                     (dwt, dw_kernels.dw_temporal_dw_plain(x.double(), dyt.double(), k))):
+        bound = 1e-5 * ref.abs().max().item() + 1e-5
+        assert (got.double() - ref).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_weight_gradients_are_the_same_from_run_to_run(cuda):
+    rng = np.random.default_rng(13)
+    x = rand(rng, 4, 8, 32, 32, 64).to(cuda, torch.bfloat16)
+    dy = rand(rng, 4, 8, 16, 16, 64).to(cuda, torch.bfloat16)
+    first = dw_kernels.dw_spatial_dw(x, dy, 3, 2)
+    assert all(torch.equal(first, dw_kernels.dw_spatial_dw(x, dy, 3, 2)) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """A tiny fp32 model, drop rates 0, block 1 rematerialized: one step on the
+    card (kernels) against the CPU (plain versions)."""
+    params = {
+        "nn_module": ("dwiseneuro", {**TINY, "drop_rate": 0.0, "drop_path_rate": 0.0, "remat_blocks": (1,)}),
+        "loss": ("mice_poisson", {"log_input": False}),
+        "optimizer": ("SGD", {"lr": 0.1}),
+        **ARGUS,
+    }
+    rng = np.random.default_rng(14)
+    weights = np.zeros((4, 2), np.float32)
+    weights[np.arange(4), [0, 1, 0, 1]] = 1.0
+    batch = MiceBatch(rng.uniform(0, 255, (4, 5, 4, 16, 16)).astype(np.float32),
+                      rng.gamma(1.5, 1.0, (4, 7, 4)).astype(np.float32), weights)
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = MouseModel(params, device=device)
+        model.build_state(seed=3)
+        before = dict(dw_kernels.LAUNCHES)
+        loss = model.train_step(batch).item()
+        launches = {k: dw_kernels.LAUNCHES[k] - before[k] for k in before}
+        out[device] = (loss, {k: p.grad.cpu() for k, p in model.state.model.named_parameters()}, launches)
+    (loss_cpu, grads_cpu, none), (loss_cuda, grads_cuda, launches) = out["cpu"], out["cuda"]
+    assert set(none.values()) == {0}
+    assert launches == {"dw_spatial_fwd": 3, "dw_temporal_fwd": 5, "dw_spatial_dx": 2, "dw_spatial_dw": 2,
+                        "dw_temporal_dw": 2}
+    np.testing.assert_allclose(loss_cuda, loss_cpu, rtol=1e-4)
+    largest = max(g.abs().max().item() for g in grads_cpu.values())
+    for name, g in grads_cpu.items():
+        bound = max(1e-3 * g.abs().max().item(), 1e-6 * largest)
+        assert (grads_cuda[name] - g).abs().max().item() <= bound, name

@@ -136,10 +136,26 @@ def test_init_is_kaiming_normal_from_the_generator():
     assert torch.all(big["block_0.pw_bn.bn.var"] == 1) and torch.all(big["readout_bias"] == 0)
 
 
-def test_training_forward_is_not_ported_yet():
-    model = DwiseNeuro(**TORCH_KWARGS).train()
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="training"):
-        model(torch.zeros(1, 5, 8, 16, 16))
+@pytest.mark.parametrize("mouse_index", [None, 1])
+def test_training_forward_matches_jax(mouse_index):
+    """Drop rates 0: the training forward (BN batch statistics) and the
+    running statistics it leaves, against the JAX ``train=True`` apply."""
+    shape = (2, 5, 8, 16, 16)
+    variables = perturbed_variables(MODEL_KWARGS, seed=6, shape=shape)
+    x = np.random.default_rng(7).uniform(0, 255, shape).astype(np.float32)
+    expected, mutated = JaxDwiseNeuro(**MODEL_KWARGS).apply(variables, x, mouse_index=mouse_index, train=True,
+                                                            mutable=["batch_stats"])
+    model = port_model(MODEL_KWARGS, variables).train()
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), mouse_index=mouse_index).numpy()
+    np.testing.assert_allclose(got, np.asarray(expected), rtol=1e-4, atol=1e-5)
+    stats = from_jax_variables({}, mutated["batch_stats"])
+    buffers = dict(model.named_buffers())
+    assert set(stats) == set(buffers)
+    for name, value in stats.items():
+        # The stem BN's first one-pass variance cancels ~(mean/std)^2 digits
+        # of 0-255 video on both sides (tests/test_torch_train_step.py).
+        np.testing.assert_allclose(buffers[name].numpy(), value.numpy(), rtol=1e-4, atol=1e-6, err_msg=name)
 
 
 def test_readout_group_sizes():
@@ -171,3 +187,7 @@ def test_chip_smoke_flagship_matches_the_config():
     argus = config.config["argus_params"]
     for key in ("frame_stack", "inputs_processor", "responses_processor"):
         assert chip_smoke.FLAGSHIP_ARGUS[key] == argus[key]
+    for key in ("loss", "optimizer", "iter_size"):
+        assert chip_smoke.FLAGSHIP_TRAIN_ARGUS[key] == argus[key]
+    assert chip_smoke.TRAIN_BATCH == config.config["batch_size"]
+    assert chip_smoke.EMA_DECAY == config.config["ema_decay"]

@@ -132,12 +132,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         dw_kernels.dw_spatial_fwd(x, torch.zeros(3, 3, 8), stride=3)
     with pytest.raises(ValueError, match="B, T, H, W, C"):
         dw_kernels.dw_temporal_fwd(x[0], torch.zeros(3, 8))
-    # No backward kernel yet: a tensor that needs a gradient is refused.
-    w = torch.zeros(3, 3, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        dw_kernels.dw_spatial_fwd(x, w)
-    with torch.no_grad():
-        dw_kernels.dw_spatial_fwd(x, w)
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
@@ -238,9 +232,3 @@ def test_batchnorm_eval_matches_jax(dtype):
     assert got.dtype == dtype
     rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-6
     torch.testing.assert_close(got.float(), torch.from_numpy(np.array(expected)), rtol=rtol, atol=1e-6)
-
-
-def test_batchnorm_training_mode_is_not_ported_yet():
-    bn = BatchNorm(4).train()
-    with pytest.raises(NotImplementedError, match="training"):
-        bn(torch.zeros(2, 4))

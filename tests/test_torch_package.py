@@ -16,6 +16,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from sensorium_tpu_torch.engine.model import MouseModel
 from sensorium_tpu_torch.infer.predictor import Predictor
 from sensorium_tpu_torch.models.registry import get_nn_module
 from tests.test_engine import tiny_params
@@ -45,6 +46,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert result["bad"] == []
     assert "sensorium_tpu_torch.infer.predictor" in result["modules"]
     assert "sensorium_tpu_torch.ops.dw_kernels" in result["modules"]
+    assert "sensorium_tpu_torch.engine.steps" in result["modules"]
+    assert "sensorium_tpu_torch.engine.model" in result["modules"]
+
+
+def test_training_engine_imports_no_jax():
+    """The train step and MouseModel alone pull in neither JAX nor the JAX package."""
+    code = (
+        "import json, sys\n"
+        "import sensorium_tpu_torch.engine.steps, sensorium_tpu_torch.engine.model\n"
+        "print(json.dumps(sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sensorium_tpu'))))"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_entry_points_refuse_cuda_without_a_card():
@@ -56,6 +72,8 @@ def test_entry_points_refuse_cuda_without_a_card():
     model = get_nn_module(name, params, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Predictor(model, tiny_params())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MouseModel(tiny_params())
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -1,0 +1,307 @@
+"""The port's training ops against the JAX package's, on the CPU.
+
+BatchNorm in training mode, drop-path and channel dropout, and the backward
+of the depthwise convs. Inputs come from numpy with a seed and go through
+both. The JAX depthwise convs run as the JAX tests run them: the Pallas
+kernels in interpret mode, and the XLA lowering. The port's CUDA kernels run
+only on a card (``tests/test_torch_cuda.py``); here the autograd Functions
+use the plain versions.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sensorium_tpu.ops import conv as jconv
+from sensorium_tpu.ops import pallas_dw
+from sensorium_tpu.ops.norm import BatchNorm as JaxBatchNorm
+from sensorium_tpu.ops.stochastic import channel_dropout as jax_channel_dropout
+from sensorium_tpu.ops.stochastic import drop_path as jax_drop_path
+from sensorium_tpu_torch.ops import dw_kernels
+from sensorium_tpu_torch.ops.norm import BatchNorm, batch_norm_train
+from sensorium_tpu_torch.ops.stochastic import channel_dropout, drop_path, drop_path_mask
+
+BF16_RTOL = 2.0**-8
+
+
+@pytest.fixture(autouse=True)
+def jax_dw_paths(monkeypatch):
+    monkeypatch.setattr(pallas_dw, "INTERPRET", True)
+    monkeypatch.setenv("SENSORIUM_DW_IMPL", "xla")  # jconv stays on XLA
+
+
+def rand(rng, *shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+# ------------------------------------------------------------------ BatchNorm
+
+
+def bn_variables(rng, c):
+    return {
+        "params": {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32), "bias": rand(rng, c)},
+        "batch_stats": {"mean": rand(rng, c) * 0.3, "var": rng.uniform(0.5, 2.0, c).astype(np.float32)},
+    }
+
+
+def port_bn(variables, c, dtype):
+    bn = BatchNorm(c, dtype=dtype).train()
+    flat = {**variables["params"], **variables["batch_stats"]}
+    bn.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in flat.items()})
+    return bn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_train_matches_jax(dtype):
+    """Output and running statistics (var unbiased) after one training
+    forward; bf16 output within one bf16 rounding of JAX's."""
+    rng = np.random.default_rng(20)
+    c = 6
+    x32 = rand(rng, 2, 3, 4, 5, c) * 2 + 1.5
+    x = torch.from_numpy(x32).to(dtype)
+    variables = bn_variables(rng, c)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    expected, mutated = JaxBatchNorm(c, dtype=jdtype).apply(
+        variables, jnp.asarray(x.float().numpy()).astype(jdtype), True, mutable=["batch_stats"]
+    )
+    bn = port_bn(variables, c, dtype)
+    got = bn(x)
+    assert got.dtype == dtype
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(expected, np.float32), rtol=rtol, atol=1e-5)
+    for key in ("mean", "var"):
+        np.testing.assert_allclose(getattr(bn, key).numpy(), np.asarray(mutated["batch_stats"][key]),
+                                   rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+def test_batchnorm_variance_survives_large_mean():
+    """The shifted one-pass variance keeps ~1e-7 relative accuracy at
+    mean/std = 80, as the JAX module does (tests/test_ops.py)."""
+    rng = np.random.default_rng(21)
+    c = 4
+    x = (rng.normal(size=(8, 50, c)) * 0.5 + 40).astype(np.float32)
+    truth = x.astype(np.float64).reshape(-1, c).var(axis=0, ddof=1)
+    bn = BatchNorm(c).train()
+    bn.mean.copy_(torch.from_numpy(x.reshape(-1, c).mean(axis=0) + rng.normal(size=c).astype(np.float32) * 0.05))
+    bn(torch.from_numpy(x))
+    got = (bn.var.numpy() - 0.9) / 0.1
+    rel = np.abs(got - truth) / truth
+    assert rel.max() < 1e-5, f"shifted variance lost precision: rel={rel.max():.2e}"
+
+
+def plain_bn_train(x, scale, bias, shift, eps=1e-5):
+    """The training BN formula, for autograd to differentiate."""
+    dims = tuple(range(x.ndim - 1))
+    x32 = x.double() if x.dtype == torch.float64 else x.float()
+    mean = x32.mean(dims)
+    var = (x32 - shift).square().mean(dims) - (mean - shift).square()
+    inv = torch.rsqrt(var + eps) * scale
+    return x32 * inv + (bias - mean * inv)
+
+
+def test_batchnorm_function_gradient_matches_autograd_and_jax():
+    rng = np.random.default_rng(22)
+    c = 5
+    x = rand(rng, 3, 4, 6, c) * 3 + 2
+    r = rand(rng, 3, 4, 6, c)
+    variables = bn_variables(rng, c)
+    scale, bias = variables["params"]["scale"], variables["params"]["bias"]
+    shift = variables["batch_stats"]["mean"]
+
+    def port_grads(fn):
+        xt = torch.from_numpy(x).requires_grad_()
+        st = torch.from_numpy(scale).requires_grad_()
+        bt = torch.from_numpy(bias).requires_grad_()
+        y = fn(xt, st, bt)
+        (y * torch.from_numpy(r)).sum().backward()
+        return [t.grad.numpy() for t in (xt, st, bt)]
+
+    got = port_grads(lambda xt, st, bt: batch_norm_train(xt, st, bt, torch.from_numpy(shift), 1e-5,
+                                                         torch.float32)[0])
+    plain = port_grads(lambda xt, st, bt: plain_bn_train(xt, st, bt, torch.from_numpy(shift)))
+
+    def jax_loss(xj, sj, bj):
+        v = {"params": {"scale": sj, "bias": bj}, "batch_stats": variables["batch_stats"]}
+        y, _ = JaxBatchNorm(c).apply(v, xj, True, mutable=["batch_stats"])
+        return jnp.sum(y * r)
+
+    expected = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+    for name, g, p, e in zip(("x", "scale", "bias"), got, plain, expected):
+        np.testing.assert_allclose(g, p, rtol=1e-4, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(g, np.asarray(e), rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def test_batchnorm_function_gradcheck():
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.normal(size=(3, 4, 3)) * 2 + 1).requires_grad_()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, 3)).requires_grad_()
+    bias = torch.from_numpy(rng.normal(size=3)).requires_grad_()
+    shift = torch.from_numpy(rng.normal(size=3))
+    assert torch.autograd.gradcheck(
+        lambda a, s, b: batch_norm_train(a, s, b, shift, 1e-5, torch.float64)[0], (x, scale, bias)
+    )
+
+
+def test_batchnorm_recompute_keeps_the_shift_and_the_statistics():
+    rng = np.random.default_rng(24)
+    bn = BatchNorm(4).train()
+    x = torch.from_numpy(rand(rng, 5, 7, 4) * 2 + 3)
+    first = bn(x)
+    stats = (bn.mean.clone(), bn.var.clone())
+    again = bn(x, recompute=True)
+    assert torch.equal(first, again)
+    assert torch.equal(bn.mean, stats[0]) and torch.equal(bn.var, stats[1])
+    with pytest.raises(RuntimeError, match="recompute"):
+        BatchNorm(4).train()(x, recompute=True)
+
+
+# ------------------------------------------------------- drop-path, dropout
+
+
+def test_drop_path_mask_shape_scale_and_rate():
+    gen = torch.Generator().manual_seed(0)
+    x = torch.ones(20000, 2, 3, 1, 4, dtype=torch.bfloat16)
+    keep = 0.7
+    mask = drop_path_mask(x, 1 - keep, gen)
+    assert mask.shape == (20000, 1, 1, 1, 1) and mask.dtype == torch.bfloat16
+    scaled = torch.tensor(1.0 / keep, dtype=torch.bfloat16)
+    assert set(mask.unique().tolist()) == {0.0, scaled.item()}
+    y = drop_path(x, 1 - keep, gen)
+    # Whole samples are kept or dropped.
+    per_sample = y.float().reshape(20000, -1)
+    assert torch.all((per_sample == 0).all(1) | (per_sample == scaled.item()).all(1))
+    frac = (per_sample[:, 0] != 0).float().mean().item()
+    jax_y = jax_drop_path(jnp.ones((20000, 2, 3, 1, 4), jnp.bfloat16), 1 - keep, jax.random.PRNGKey(0))
+    jax_frac = float(jnp.mean(jax_y.reshape(20000, -1)[:, 0] != 0))
+    sigma = (keep * (1 - keep) / 20000) ** 0.5
+    assert abs(frac - keep) < 5 * sigma and abs(jax_frac - keep) < 5 * sigma
+    assert float(jax_y.max()) == scaled.item()
+    assert drop_path(x, 0.0, gen) is x
+
+
+def test_channel_dropout_mask_shape_scale_and_rate():
+    gen = torch.Generator().manual_seed(1)
+    b, t, c = 400, 6, 50
+    x = torch.ones(b, t, c)
+    rate = 0.4
+    y = channel_dropout(x, rate, gen)
+    # One draw per (sample, channel), shared across T.
+    assert torch.equal(y, y[:, :1].expand_as(y))
+    values = y.unique()
+    assert len(values) == 2 and values[0] == 0.0
+    np.testing.assert_allclose(values[1].item(), 1 / 0.6, rtol=1e-6)
+    frac = (y[:, 0] != 0).float().mean().item()
+    jax_y = jax_channel_dropout(jnp.ones((b, t, c)), rate, jax.random.PRNGKey(1))
+    jax_frac = float(jnp.mean(jax_y[:, 0] != 0))
+    sigma = (0.6 * 0.4 / (b * c)) ** 0.5
+    assert abs(frac - 0.6) < 5 * sigma and abs(jax_frac - 0.6) < 5 * sigma
+    np.testing.assert_allclose(float(jax_y.max()), y.max().item(), rtol=1e-6)
+    assert channel_dropout(x, 0.0, gen) is x
+
+
+# ------------------------------------------------------ depthwise backward
+
+
+def jax_spatial_vjp(fn, x, w, dy, stride):
+    _, vjp = jax.vjp(lambda a, b: fn(a, b, stride), jnp.asarray(x), jnp.asarray(w))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("hw", [(8, 8), (9, 11), (10, 12)])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dw_spatial_backward_plain_matches_jax(stride, hw, k):
+    rng = np.random.default_rng(30)
+    x = rand(rng, 2, 3, *hw, 8)
+    w = rand(rng, k, k, 8)
+    oh, ow = (dw_kernels.spatial_out_size(s, k, stride) for s in hw)
+    dy = rand(rng, 2, 3, oh, ow, 8)
+    dx = dw_kernels.dw_spatial_dx_plain(torch.from_numpy(dy), torch.from_numpy(w), stride, hw).numpy()
+    dw = dw_kernels.dw_spatial_dw_plain(torch.from_numpy(x), torch.from_numpy(dy), k, stride).numpy()
+    assert dw.dtype == np.float32
+    for fn in (pallas_dw.dw_spatial, jconv.depthwise_conv_spatial):
+        jdx, jdw = jax_spatial_vjp(fn, x, w, dy, stride)
+        np.testing.assert_allclose(dx, jdx, atol=1e-4)
+        np.testing.assert_allclose(dw, jdw, atol=1e-4)
+    # The autograd Function (plain versions on the CPU) gives the same.
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    dw_kernels.dw_spatial(xt, wt, stride).backward(torch.from_numpy(dy))
+    np.testing.assert_array_equal(xt.grad.numpy(), dx)
+    np.testing.assert_array_equal(wt.grad.numpy(), dw)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_dw_temporal_backward_plain_matches_jax(k):
+    rng = np.random.default_rng(31)
+    x = rand(rng, 2, 6, 4, 5, 8)
+    w = rand(rng, k, 8)
+    dy = rand(rng, 2, 6, 4, 5, 8)
+    dx = dw_kernels.dw_temporal_plain(torch.from_numpy(dy), torch.from_numpy(w).flip(0)).numpy()
+    dw = dw_kernels.dw_temporal_dw_plain(torch.from_numpy(x), torch.from_numpy(dy), k).numpy()
+    for fn in (pallas_dw.dw_temporal, jconv.depthwise_conv_temporal):
+        _, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(w))
+        jdx, jdw = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+        np.testing.assert_allclose(dx, jdx, atol=1e-4)
+        np.testing.assert_allclose(dw, jdw, atol=1e-4)
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    dw_kernels.dw_temporal(xt, wt).backward(torch.from_numpy(dy))
+    np.testing.assert_array_equal(xt.grad.numpy(), dx)
+    np.testing.assert_array_equal(wt.grad.numpy(), dw)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dw_spatial_function_gradcheck(stride):
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.normal(size=(1, 2, 5, 6, 3))).requires_grad_()
+    w = torch.from_numpy(rng.normal(size=(3, 3, 3))).requires_grad_()
+    assert torch.autograd.gradcheck(lambda a, b: dw_kernels.dw_spatial(a, b, stride), (x, w))
+
+
+def test_dw_temporal_function_gradcheck():
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(rng.normal(size=(1, 5, 2, 3, 3))).requires_grad_()
+    w = torch.from_numpy(rng.normal(size=(3, 3))).requires_grad_()
+    assert torch.autograd.gradcheck(dw_kernels.dw_temporal, (x, w))
+
+
+def test_dw_backward_rounds_once_in_bf16():
+    """bf16 dx rounds once from the fp32 sum; dw comes back in fp32 and the
+    Function rounds it to w's dtype."""
+    rng = np.random.default_rng(34)
+    dy = torch.from_numpy(rand(rng, 2, 3, 5, 6, 16)).to(torch.bfloat16)
+    x = torch.from_numpy(rand(rng, 2, 3, 9, 11, 16)).to(torch.bfloat16)
+    w = torch.from_numpy(rand(rng, 3, 3, 16)).to(torch.bfloat16)
+    low = dw_kernels.dw_spatial_dx_plain(dy, w, 2, (9, 11))
+    ref = dw_kernels.dw_spatial_dx_plain(dy.float(), w.float(), 2, (9, 11))
+    assert low.dtype == torch.bfloat16
+    torch.testing.assert_close(low.float(), ref, rtol=BF16_RTOL, atol=1e-6)
+    assert dw_kernels.dw_spatial_dw_plain(x, dy, 3, 2).dtype == torch.float32
+    xt, wt = x.clone().requires_grad_(), w.clone().requires_grad_()
+    dw_kernels.dw_spatial(xt, wt, 2).backward(dy)
+    assert xt.grad.dtype == torch.bfloat16 and wt.grad.dtype == torch.bfloat16
+
+
+def test_backward_wrappers_refuse_mismatched_shapes():
+    x = torch.zeros(1, 2, 6, 6, 8)
+    with pytest.raises(ValueError, match="output of"):
+        dw_kernels.dw_spatial_dx(torch.zeros(1, 2, 4, 4, 8), torch.zeros(3, 3, 8), 2, (6, 6))
+    with pytest.raises(ValueError, match="output of"):
+        dw_kernels.dw_spatial_dw(x, torch.zeros(1, 2, 6, 6, 8), 3, 2)
+    with pytest.raises(ValueError, match="differ"):
+        dw_kernels.dw_temporal_dw(x, torch.zeros(1, 3, 6, 6, 8), 3)
+
+
+def test_backward_wrappers_never_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel or raises: here a
+    meta tensor, which no kernel takes, raises instead of taking the plain path."""
+    x = torch.zeros(1, 2, 4, 4, 8, device="meta")
+    w = torch.zeros(3, 3, 8, device="meta")
+    for call in (lambda: dw_kernels.dw_spatial_dx(x, w, 1, (4, 4)),
+                 lambda: dw_kernels.dw_spatial_dw(x, x, 3, 1),
+                 lambda: dw_kernels.dw_temporal_dw(x, x, 3)):
+        with pytest.raises(RuntimeError, match="CUDA tensors"):
+            call()
