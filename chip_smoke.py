@@ -48,15 +48,40 @@ Phases, each of which passes or makes the script exit non-zero:
    (plain versions). The loss within 1e-4 relative, every parameter's
    gradient within 1e-3 of its tensor's largest CPU gradient, with a floor
    of 1e-6 of the model's largest gradient (BN biases that feed another BN
-   have an analytically zero gradient).
+   have an analytically zero gradient);
+9. fused kernel: ``fused_bn_silu_dw_spatial`` (BN-apply + SiLU + spatial
+   depthwise conv) against its plain version at every BN -> SiLU -> spatial
+   dw shape of a flagship chunk forward, at the two shapes of ``dwbench``
+   that the model does not run, at ragged shapes and with half the channels
+   dead (scale 0, shift != 0), in bf16 and fp32, held as phase 3 holds the
+   forward kernels. No single PyTorch call computes this function:
+   ``library_ms`` is the faster of two eager chains, ``silu(addcmul)`` ->
+   ``F.conv3d(groups=C)`` and ``silu(addcmul)`` -> ``F.conv2d(groups=C)``
+   (``dwbench``'s ``chain`` and ``chain2d``), and both are recorded;
+10. dwbench: ``sensorium_tpu_torch.tools.dwbench`` at its own shapes, every
+   impl; each must return a time, and ``fused`` must be within one bf16
+   rounding of the activation of ``pallas``. This is the fused kernel's main
+   path: its launches are counted here;
+11. fit: a dataset in the on-disk layout at real widths (10 mice with their
+   neuron counts, 36x64 video, 3 labeled 300-frame trials each) is written
+   under ``--out``; with ``SENSORIUM_FOLD_ASSIGNMENT=trial`` the flagship
+   ``MouseModel`` (CutMix alpha 1, p 0.5) trains on folds 1-2 through
+   ``TrainMiceDataset`` -> ``MiceDataLoader`` (batch 32, drop_last, 8
+   threads) for 2 epochs of 8 steps, validating on fold 0 (90 windows)
+   with ``CorrelationMetric``, logging to CSV and JSONL. Every loss and
+   ``val_corr`` must be finite, the launches per step those of phase 7,
+   both logs two epochs long, and the native host library in use. It
+   prints the clips/s fed from disk beside phase 7's and the share of the
+   wall clock ``fit`` waited on the loader.
 
 After the counted serving run, one more request runs under
 ``torch.profiler`` and the device time is summed by kernel. The script then
 prints the ``{"kernels": [...]}`` line, the nvidia-smi line again, and last
 ``{"ok": true, "device": {...}}``. The full per-shape record
-(``chip_smoke.json``) and the profiler traces (``chip_smoke_trace.json``,
-``chip_smoke_train_trace.json``) go to ``--out``, by default
-``build/chip_smoke/`` in the checkout.
+(``chip_smoke.json``), the profiler traces (``chip_smoke_trace.json``,
+``chip_smoke_train_trace.json``) and the fit's logs go to ``--out``, by
+default ``build/chip_smoke/`` in the checkout; the fit's dataset is written
+there too and removed after the fit.
 """
 
 from __future__ import annotations
@@ -64,6 +89,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -138,6 +164,14 @@ DW_REL_TOL = 1e-5  # weight gradients against float64: sums of up to 5e5 product
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL_TOL = 1e-3
 TRAIN_GRAD_FLOOR = 1e-6
+
+DWBENCH_ITERS = 10
+# Phase 11: the on-disk dataset and the fit.
+FIT_VIDEO = (36, 64)
+FIT_TRIALS = 3  # labeled trials per mouse: trial i is fold_i under SENSORIUM_FOLD_ASSIGNMENT=trial
+FIT_EPOCHS = 2
+FIT_STEPS = 8  # per epoch
+FIT_THREADS = 8
 
 
 def fail(message: str) -> None:
@@ -693,11 +727,340 @@ def train_card_against_cpu(record: dict) -> None:
         fail(f"train: the gradient of {worst_name} differs beyond its bound ({worst} x)")
 
 
-def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict) -> list[dict]:
+def fused_cases() -> list[dict]:
+    """Phase 9's shapes: every BN -> SiLU -> spatial dw of a flagship chunk
+    forward, then those of ``dwbench`` (phase 10) that the model does not
+    run, then ragged ones, with and without dead channels."""
+    from sensorium_tpu_torch.tools import dwbench
+
+    cases = [dict(s, batch=(CHUNK, FRAMES), dead=False) for s in flagship_kernel_shapes()
+             if s["kernel"] == "dw_spatial_fwd"]
+    seen = {(c["batch"], c["hw"], c["c"], c["stride"], c["k"]) for c in cases}
+    for _, (b, t, h, w, c, stride) in dwbench.SHAPES:
+        if ((b, t), (h, w), c, stride, dwbench.K) not in seen:
+            cases.append({"hw": (h, w), "c": c, "stride": stride, "k": dwbench.K, "blocks": [], "batch": (b, t),
+                          "dead": False})
+    for stride in (1, 2):
+        for k in (3, 5):
+            for dead in (False, True):
+                cases.append({"hw": (9, 11), "c": 24, "stride": stride, "k": k, "blocks": [], "batch": (2, 3),
+                              "dead": dead})
+    return cases
+
+
+def check_fused_kernel(peaks: tuple[float, float]) -> list[dict]:
+    """Phase 9: the fused BN-apply + SiLU + depthwise kernel against its plain version, timed."""
+    import torch
+
+    from sensorium_tpu_torch.ops import dw_kernels
+    from sensorium_tpu_torch.tools import dwbench
+
+    name = "fused_bn_silu_dw_spatial"
+    bytes_per_s, ops_per_s = peaks
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = []
+    for case in fused_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            b, t = case["batch"]
+            h, w = case["hw"]
+            c, k, s = case["c"], case["k"], case["stride"]
+            x = torch.randn(b, t, h, w, c, device="cuda", generator=gen).to(dtype)
+            scale = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+            shift = 0.2 * torch.randn(c, device="cuda", generator=gen)
+            if case["dead"]:
+                scale[c // 2 :] = 0.0
+                shift[c // 2 :] = 1.0
+            wt = (torch.randn(k, k, c, device="cuda", generator=gen) / k).to(dtype)
+            run = lambda: dw_kernels.fused_bn_silu_dw_spatial(x, scale, shift, wt, s)  # noqa: E731
+            plain = lambda: dw_kernels.fused_bn_silu_dw_spatial_plain(x, scale, shift, wt, s)  # noqa: E731
+            chain3d = lambda: dwbench.chain(x, scale, shift, wt, s)  # noqa: E731
+            chain2d = lambda: dwbench.chain2d(x, scale, shift, wt, s)  # noqa: E731
+
+            y = run()
+            torch.cuda.synchronize()
+            ref = dw_kernels.fused_bn_silu_dw_spatial_plain(x.float(), scale, shift, wt.float(), s)
+            if y.shape != ref.shape or y.dtype != dtype:
+                fail(f"{name} {case}: {tuple(y.shape)} {y.dtype} vs plain {tuple(ref.shape)}")
+            err = (y.float() - ref).abs()
+            rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+            ok = bool(torch.all(err <= ATOL + rtol * ref.abs()))
+            row = {
+                "kernel": name,
+                "dtype": str(dtype).replace("torch.", ""),
+                "shape": [b, t, h, w, c],
+                "stride": s,
+                "k": k,
+                "dead_channels": case["dead"],
+                "blocks": case["blocks"],
+                "max_abs_err": float(err.max()),
+                "ok": ok,
+            }
+            del err, ref
+            nbytes = (x.numel() + wt.numel() + y.numel()) * x.element_size() + 2 * c * 4
+            # k*k multiply-adds per output; a multiply-add, an exponential, an
+            # add and a division per input element.
+            ops = 2 * k * k * y.numel() + 5 * x.numel()
+            row["bytes"] = nbytes
+            row["bytes_ms"], row["ops_ms"] = nbytes / bytes_per_s * 1e3, ops / ops_per_s * 1e3
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+            row["ms"] = cuda_ms(run)
+            row["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
+            row["chain3d_ms"], row["chain2d_ms"] = cuda_ms(chain3d), cuda_ms(chain2d)
+            row["library_ms"] = min(row["chain3d_ms"], row["chain2d_ms"])
+            rows.append(row)
+            print(
+                f"kernel {name} {row['dtype']:<8} {str(row['shape']):<28} s={s} k={k} "
+                f"dead={case['dead']} blocks={row['blocks']} err={row['max_abs_err']:.3g} ok={ok} "
+                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} chain3d_ms={row['chain3d_ms']:.4f} "
+                f"chain2d_ms={row['chain2d_ms']:.4f} "
+                f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, {nbytes / 1e9:.3f} GB)",
+                flush=True,
+            )
+            del x, wt, y
+            torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} fused kernel checks disagree with the plain version: {bad}")
+    return rows
+
+
+def run_dwbench(record: dict) -> dict:
+    """Phase 10: the port's dwbench at its shapes, the fused kernel's launches counted."""
+    import torch
+
+    from sensorium_tpu_torch.ops import dw_kernels
+    from sensorium_tpu_torch.tools import dwbench
+
+    name = "fused_bn_silu_dw_spatial"
+    for key in dw_kernels.LAUNCHES:
+        dw_kernels.LAUNCHES[key] = 0
+    start = time.perf_counter()
+    records = dwbench.run("cuda", iters=DWBENCH_ITERS, seed=SEED,
+                          emit=lambda line: print(f"dwbench: {line}", flush=True))
+    torch.cuda.synchronize()
+    launches = dict(dw_kernels.LAUNCHES)
+    elapsed = time.perf_counter() - start
+    record["dwbench"] = {"iters": DWBENCH_ITERS, "seconds": elapsed, "records": records, "launches": launches}
+    bad = dwbench.failed(records)
+    if bad:
+        fail(f"dwbench: {len(bad)} impls failed or disagreed: {bad}")
+    # Per spatial shape: a warm-up call, the timed calls and the comparison with pallas.
+    expected = len(dwbench.SHAPES) * (DWBENCH_ITERS + 2)
+    if launches[name] != expected:
+        fail(f"dwbench: {name} launched {launches[name]} times, expected {expected}")
+    print(f"dwbench: {len(records)} (shape, impl) timings in {elapsed:.1f} s; launches {launches}", flush=True)
+    return launches
+
+
+def write_fit_dataset(root: Path) -> int:
+    """The on-disk layout of the dataset (``<root>/<mouse>/{data,meta}``) at
+    real widths, from the seed; returns the bytes written."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 4)
+    total = 0
+    for mouse, neurons in zip(constants.mice, constants.num_neurons):
+        mdir = root / mouse
+        for sub in ("data/videos", "data/behavior", "data/pupil_center", "data/responses", "meta/trials",
+                    "meta/neurons"):
+            (mdir / sub).mkdir(parents=True, exist_ok=True)
+        arrays = {
+            "meta/trials/tiers.npy": np.array(["train"] * FIT_TRIALS),
+            "meta/neurons/unit_ids.npy": np.arange(1, neurons + 1, dtype=np.int64),
+            "meta/neurons/cell_motor_coordinates.npy": rng.uniform(0, 100, (neurons, 3)).astype(np.float32),
+        }
+        for trial in range(FIT_TRIALS):
+            arrays[f"data/videos/{trial}.npy"] = rng.uniform(0, 255, (*FIT_VIDEO, TRIAL_LENGTH)).astype(np.float32)
+            arrays[f"data/behavior/{trial}.npy"] = rng.uniform(0, 5, (2, TRIAL_LENGTH)).astype(np.float32)
+            arrays[f"data/pupil_center/{trial}.npy"] = rng.uniform(50, 200, (2, TRIAL_LENGTH)).astype(np.float32)
+            arrays[f"data/responses/{trial}.npy"] = rng.gamma(1.5, 1.0, (neurons, TRIAL_LENGTH)).astype(np.float32)
+        for name, array in arrays.items():
+            np.save(mdir / name, array)
+            total += array.nbytes
+    return total
+
+
+class TimedLoader:
+    """A loader wrapped for phase 11: per pass, the seconds spent blocked in
+    ``next()`` and (with ``sync``) the span until the card has finished the
+    last batch's work."""
+
+    def __init__(self, loader, sync: bool):
+        self.loader = loader
+        self.sync = sync
+        self.passes: list[dict] = []
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        import torch
+
+        record = {"batches": 0, "wait_seconds": 0.0}
+        start = time.perf_counter()
+        batches = iter(self.loader)
+        while True:
+            before = time.perf_counter()
+            batch = next(batches, None)
+            record["wait_seconds"] += time.perf_counter() - before
+            if batch is None:
+                break
+            record["batches"] += 1
+            yield batch
+        if self.sync:
+            torch.cuda.synchronize()
+        record["seconds"] = time.perf_counter() - start
+        self.passes.append(record)
+
+
+def fit(record: dict, out_dir: Path) -> dict:
+    """Phase 11: the flagship fit loop fed from disk."""
+    import csv
+    import os
+
+    import numpy as np
+    import torch
+
+    from sensorium_tpu_torch.data import mouse_data, native
+    from sensorium_tpu_torch.data.datasets import TrainMiceDataset, ValMiceDataset
+    from sensorium_tpu_torch.data.indexes import WindowIndexer
+    from sensorium_tpu_torch.data.inputs import get_inputs_processor
+    from sensorium_tpu_torch.data.loader import MiceDataLoader
+    from sensorium_tpu_torch.data.mixers import CutMix
+    from sensorium_tpu_torch.data.responses import get_responses_processor
+    from sensorium_tpu_torch.engine.callbacks import LoggingToCSV, LoggingToJSONL, Timer
+    from sensorium_tpu_torch.engine.metrics import CorrelationMetric
+    from sensorium_tpu_torch.engine.model import MouseModel
+    from sensorium_tpu_torch.ops import dw_kernels
+
+    root = out_dir / "fit_data"
+    start = time.perf_counter()
+    nbytes = write_fit_dataset(root)
+    write_s = time.perf_counter() - start
+    os.environ["SENSORIUM_FOLD_ASSIGNMENT"] = "trial"
+    constants.sensorium_dir = root
+    mouse_data.get_folds_tiers.cache_clear()
+    stack = FLAGSHIP_ARGUS["frame_stack"]
+    processors = (WindowIndexer(stack["size"], stack["step"], stack["position"]),
+                  get_inputs_processor(*FLAGSHIP_ARGUS["inputs_processor"]),
+                  get_responses_processor(*FLAGSHIP_ARGUS["responses_processor"]))
+    train_set = TrainMiceDataset([mouse_data.get_mouse_data(m, ["fold_1", "fold_2"]) for m in constants.mice],
+                                 *processors, mouse_epoch_size=-(-FIT_STEPS * TRAIN_BATCH // constants.num_mice),
+                                 mixer=CutMix(alpha=1.0, prob=0.5), seed=SEED)
+    val_set = ValMiceDataset([mouse_data.get_mouse_data(m, ["fold_0"]) for m in constants.mice], *processors)
+    train_loader = TimedLoader(MiceDataLoader(train_set, TRAIN_BATCH, shuffle=True, seed=SEED,
+                                              num_threads=FIT_THREADS, drop_last=True), sync=True)
+    val_loader = TimedLoader(MiceDataLoader(val_set, TRAIN_BATCH, num_threads=FIT_THREADS), sync=False)
+    if len(train_loader) != FIT_STEPS:
+        fail(f"fit: {len(train_loader)} train batches per epoch, expected {FIT_STEPS}")
+    if not native.available():
+        fail("fit: the native host library is not in use")
+    print(f"fit: wrote {nbytes / 1e9:.3f} GB in {write_s:.1f} s under {root}; {len(train_set)} train samples, "
+          f"{len(val_set)} val windows ({len(val_loader)} batches); native host library {native.library_path().name}",
+          flush=True)
+
+    model = MouseModel(FLAGSHIP_TRAIN_ARGUS, device="cuda")
+    model.set_ema(EMA_DECAY)
+    model.build_state(seed=SEED, learning_rate=get_lr(3e-4, TRAIN_BATCH))
+    log_dir = out_dir / "fit"
+    logs = (LoggingToCSV(log_dir / "log.csv", append=False), LoggingToJSONL(log_dir / "log.jsonl", append=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in dw_kernels.LAUNCHES:
+        dw_kernels.LAUNCHES[key] = 0
+    start = time.perf_counter()
+    model.fit(train_loader, val_loader=val_loader, num_epochs=FIT_EPOCHS, callbacks=[Timer(), *logs],
+              metrics=[CorrelationMetric()])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = dict(dw_kernels.LAUNCHES)
+
+    with open(log_dir / "log.csv", newline="") as handle:
+        rows = list(csv.DictReader(handle))
+    records = [json.loads(line) for line in (log_dir / "log.jsonl").read_text().splitlines()]
+    waited = sum(p["wait_seconds"] for p in train_loader.passes + val_loader.passes)
+    epochs = []
+    for epoch, (rec, train_pass) in enumerate(zip(records, train_loader.passes)):
+        epochs.append({
+            "epoch": epoch,
+            "train_loss": rec.get("train_loss"),
+            "val_loss": rec.get("val_loss"),
+            "val_corr": rec.get("val_corr"),
+            "epoch_time": rec.get("epoch_time"),
+            "train_seconds": train_pass["seconds"],
+            "train_loader_wait_seconds": train_pass["wait_seconds"],
+            "clips_per_second_from_disk": train_pass["batches"] * TRAIN_BATCH / train_pass["seconds"],
+        })
+    result = {
+        "dataset_bytes": nbytes,
+        "train_samples": len(train_set),
+        "val_windows": len(val_set),
+        "wall_seconds": wall,
+        "loader_wait_seconds": waited,
+        "loader_wait_share": waited / wall,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "epochs": epochs,
+        "launches": launches,
+    }
+    record["fit"] = result
+    for e in epochs:
+        print(f"fit: epoch {e['epoch']}: train_loss {e['train_loss']:.6g}, val_loss {e['val_loss']:.6g}, "
+              f"val_corr {e['val_corr']:.6g}; {FIT_STEPS} steps in {e['train_seconds']:.3f} s = "
+              f"{e['clips_per_second_from_disk']:.1f} clips/s fed from disk, loader wait "
+              f"{e['train_loader_wait_seconds']:.3f} s", flush=True)
+    synthetic = record["train"]["clips_per_second"]
+    print(f"fit: {FIT_EPOCHS} epochs in {wall:.2f} s, waiting on the loader {waited:.3f} s "
+          f"({result['loader_wait_share']:.1%} of the wall clock); clips/s fed from disk (epoch 1) "
+          f"{epochs[-1]['clips_per_second_from_disk']:.1f} against {synthetic:.1f} on one synthetic batch (phase 7); "
+          f"peak memory {result['peak_memory_gb']:.2f} GB", flush=True)
+
+    values = [v for e in epochs for v in (e["train_loss"], e["val_loss"], e["val_corr"])]
+    if len(rows) != FIT_EPOCHS or len(records) != FIT_EPOCHS:
+        fail(f"fit: the logs hold {len(rows)} CSV rows and {len(records)} JSONL records, expected {FIT_EPOCHS}")
+    if not all(v is not None and np.isfinite(v) for v in values):
+        fail(f"fit: a loss or val_corr is not finite: {epochs}")
+    val_forwards = FIT_EPOCHS * len(val_loader)
+    steps = FIT_EPOCHS * FIT_STEPS
+    blocks = len(FLAGSHIP_NN_MODULE[1]["core_features"])
+    expected = {key: count * steps for key, count in expected_train_launches().items()}
+    expected["fused_bn_silu_dw_spatial"] = 0  # off the model's path
+    expected["dw_spatial_fwd"] += blocks * val_forwards
+    expected["dw_temporal_fwd"] += blocks * val_forwards
+    if launches != expected:
+        fail(f"fit: launches {launches} over {steps} steps and {val_forwards} val forwards, expected {expected}")
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)  # made anew from the seed by every run
+    return launches
+
+
+def _summed(rows: list[dict], name: str) -> dict:
+    """Times and bound of ``name`` summed over the flagship blocks' calls (bf16 rows)."""
+    flagship = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16" and r["blocks"]]
+
+    def total(key):
+        return sum(r[key] * len(r["blocks"]) for r in flagship)
+
+    return {
+        "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+        "ms": total("ms"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
+        "library_ms": total("library_ms"),
+    }
+
+
+def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused_rows: list[dict],
+                   fused_launches: dict) -> list[dict]:
     """One entry per kernel: sums over the calls of one flagship training step
     (batch 32 x 16 frames, the shapes of a 32-window chunk forward), bf16.
     ``launches`` counts the timed train steps, ``launches_serve`` the counted
-    serving run."""
+    serving run; the fused kernel's launches are the dwbench run's."""
     replaces = {
         "dw_spatial_fwd": ("dw_conv.cu", "sensorium_tpu/ops/pallas_dw.py:115"),
         "dw_temporal_fwd": ("dw_conv.cu", "sensorium_tpu/ops/pallas_dw.py:355"),
@@ -707,29 +1070,30 @@ def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict) -> li
     }
     out = []
     for name, (source, replaced) in replaces.items():
-        flagship = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16" and r["blocks"]]
-        mine = [r for r in rows if r["kernel"] == name]
-
-        def total(key):
-            return sum(r[key] * len(r["blocks"]) for r in flagship)
-
-        entry = {
+        out.append({
             "name": name,
             "route": "cuda",
             "source": f"sensorium_tpu_torch/csrc/{source}",
             "replaces": replaced,
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": total("ms"),
-            "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": "bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
-            "library_ms": total("library_ms"),
+            **_summed(rows, name),
             "scope": "sum over the 9 blocks' calls of one flagship train step (32 clips x 16 frames), bf16; "
                      f"launches over {TIMED_STEPS} train steps",
             "launches_serve": serve_launches[name],
-        }
-        out.append(entry)
+        })
+    name = "fused_bn_silu_dw_spatial"
+    out.append({
+        "name": name,
+        "route": "cuda",
+        "source": "sensorium_tpu_torch/csrc/fused_bn_silu_dw.cu",
+        "replaces": "sensorium_tpu/ops/pallas_fused.py:128",
+        "launches": fused_launches[name],
+        **_summed(fused_rows, name),
+        "library_note": "no single PyTorch call computes this function: library_ms is, per shape, the faster "
+                        "eager chain, silu(addcmul) -> F.conv3d(groups=C) or -> F.conv2d(groups=C)",
+        "scope": "sum over the 9 blocks' BN -> SiLU -> spatial dw of one flagship chunk forward "
+                 "(32 windows x 16 frames), bf16; launches in the dwbench run (phase 10)",
+    })
     return out
 
 
@@ -778,8 +1142,12 @@ def main() -> int:
     record["backward_kernels"] = backward_rows
     train_launches = train(record, args.out)
     train_card_against_cpu(record)
+    fused_rows = check_fused_kernel(peaks)
+    record["fused_kernel"] = fused_rows
+    fused_launches = run_dwbench(record)
+    fit(record, args.out)
 
-    summary = kernel_summary(rows + backward_rows, train_launches, serve_launches)
+    summary = kernel_summary(rows + backward_rows, train_launches, serve_launches, fused_rows, fused_launches)
     record["summary"] = summary
     (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 

@@ -1,10 +1,33 @@
-"""Dataset constants of the Sensorium 2023 competition that the port needs.
+"""Dataset constants of the Sensorium 2023 competition.
 
-A copy of the mouse identifiers and neuron counts of
-``sensorium_tpu/constants.py``: the port imports nothing of the JAX package.
+A copy of ``sensorium_tpu/constants.py``: mouse identifiers, neuron counts,
+data layout on disk, fold and split names and the submission cut. The port
+imports nothing of the JAX package.
+
+The filesystem roots come from environment variables when the module is
+imported:
+
+* ``SENSORIUM_WORK_DIR``: base working directory (default ``./``);
+* ``SENSORIUM_DATA_DIR``: dataset root (default ``<work>/data``).
+
+The data modules read ``sensorium_dir`` when they are called, so a caller may
+point it elsewhere by assigning the attribute.
 """
 
 from __future__ import annotations
+
+import os
+from pathlib import Path
+
+
+def _env_path(name: str, default: Path) -> Path:
+    value = os.environ.get(name)
+    return Path(value) if value else default
+
+
+work_dir: Path = _env_path("SENSORIUM_WORK_DIR", Path("."))
+data_dir: Path = _env_path("SENSORIUM_DATA_DIR", work_dir / "data")
+sensorium_dir: Path = data_dir / "sensorium_all_2023"
 
 # Five mice recorded for the 2023 competition ("new") and five carried over
 # from the 2022 edition ("old").  Names are the official dataset keys.
@@ -29,4 +52,19 @@ old_num_neurons = [7440, 7928, 8285, 7671, 7495]
 mice = new_mice + old_mice
 num_neurons = new_num_neurons + old_num_neurons
 num_mice = len(mice)
+index2mouse: dict[int, str] = dict(enumerate(mice))
 mouse2index: dict[str, int] = {mouse: index for index, mouse in enumerate(mice)}
+mouse2num_neurons: dict[str, int] = dict(zip(mice, num_neurons))
+mice_indexes = list(range(num_mice))
+max_num_neurons = max(num_neurons)
+
+unlabeled_splits = ["live_test_main", "live_test_bonus", "final_test_main", "final_test_bonus"]
+
+num_folds = 7
+folds = list(range(num_folds))
+folds_splits = [f"fold_{fold}" for fold in folds]
+
+# Submission responses are cut to frames [skip_first, limit_length - skip_last).
+submission_limit_length = 300
+submission_skip_first = 50
+submission_skip_last = 1

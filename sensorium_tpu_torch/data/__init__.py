@@ -1,1 +1,2 @@
-"""Window indexing and input assembly of the port."""
+"""The data feed of the port: trial catalogs, window indexing, input assembly,
+the native host library, datasets, mixers and the loader."""

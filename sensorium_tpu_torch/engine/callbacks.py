@@ -1,0 +1,211 @@
+"""Training callbacks (counterpart of ``sensorium_tpu/engine/callbacks.py``).
+
+The callbacks of the fit loop: logging to ``log.txt``, ``log.csv`` and
+``log.jsonl``, early stopping and an epoch timer. The learning rate is a
+schedule of the update count inside the train step, not a callback.
+``Checkpoint`` comes with the port's checkpoint I/O.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import logging
+import sys
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any
+
+_FORMAT = "%(asctime)s %(levelname)s %(message)s"
+
+
+@dataclass
+class EngineState:
+    """What callbacks observe at epoch boundaries."""
+
+    model: Any
+    stage: str = "train"
+    epoch: int = 0
+    global_epoch: int = 0
+    metrics: dict[str, float] = field(default_factory=dict)
+    logger: logging.Logger = field(default_factory=lambda: logging.getLogger("sensorium"))
+    stopped: bool = False
+
+
+class Callback:
+    def epoch_start(self, state: EngineState) -> None:
+        pass
+
+    def epoch_complete(self, state: EngineState) -> None:
+        pass
+
+    def fit_complete(self, state: EngineState) -> None:
+        """Called once when fit() ends, normally or on an error."""
+        pass
+
+
+def _has_file_handler(logger: logging.Logger, path) -> bool:
+    return any(
+        isinstance(h, logging.FileHandler) and Path(getattr(h, "baseFilename", "")) == Path(path).resolve()
+        for h in logger.handlers
+    )
+
+
+def build_logger(log_path: Path | None = None, append: bool = True) -> logging.Logger:
+    """The shared 'sensorium' logger, with a stdout handler and optionally a
+    file handler, each added only if an equal one is not there already (the
+    logger is process-wide; no handler is ever removed here)."""
+    logger = logging.getLogger("sensorium")
+    logger.setLevel(logging.INFO)
+    formatter = logging.Formatter(_FORMAT)
+    if not any(type(h) is logging.StreamHandler and getattr(h, "stream", None) is sys.stdout
+               for h in logger.handlers):
+        stream = logging.StreamHandler(sys.stdout)
+        stream.setFormatter(formatter)
+        logger.addHandler(stream)
+    if log_path is not None and not _has_file_handler(logger, log_path):
+        handler = logging.FileHandler(log_path, mode="a" if append else "w")
+        handler.setFormatter(formatter)
+        logger.addHandler(handler)
+    return logger
+
+
+class LoggingToFile(Callback):
+    """Mirror the log lines of a fit into ``log.txt``."""
+
+    def __init__(self, file_path, append: bool = True):
+        self.file_path = Path(file_path)
+        self.append = append
+        self._handler: logging.FileHandler | None = None
+
+    def epoch_start(self, state: EngineState) -> None:
+        self.file_path.parent.mkdir(parents=True, exist_ok=True)
+        if not _has_file_handler(state.logger, self.file_path):
+            handler = logging.FileHandler(self.file_path, mode="a" if self.append else "w")
+            handler.setFormatter(logging.Formatter(_FORMAT))
+            state.logger.addHandler(handler)
+            self._handler = handler
+
+    def fit_complete(self, state: EngineState) -> None:
+        # Detach the handler this callback attached (and only that one), or
+        # a later fit's lines would land in this file too.
+        if self._handler is not None:
+            state.logger.removeHandler(self._handler)
+            self._handler.close()
+            self._handler = None
+
+
+class LoggingToCSV(Callback):
+    """Append one metrics row per epoch to ``log.csv``.
+
+    Columns stay aligned with the header when the metric set changes: absent
+    keys are left empty, and a row with new keys rewrites the file once
+    under the union header.
+    """
+
+    def __init__(self, file_path, append: bool = True):
+        self.file_path = Path(file_path)
+        self.append = append
+        self._initialized = False
+        self._fieldnames: list[str] | None = None
+
+    def epoch_complete(self, state: EngineState) -> None:
+        self.file_path.parent.mkdir(parents=True, exist_ok=True)
+        row = {"epoch": state.global_epoch, "stage": state.stage, **state.metrics}
+        use_existing = self.file_path.exists() and (self.append or self._initialized)
+        if self._fieldnames is None:
+            self._fieldnames = []
+            if use_existing:
+                with open(self.file_path, newline="") as handle:
+                    self._fieldnames = list(csv.DictReader(handle).fieldnames or [])
+        new_keys = [key for key in row if key not in self._fieldnames]
+        if new_keys:
+            self._fieldnames = self._fieldnames + new_keys
+            old_rows: list[dict] = []
+            if use_existing:
+                with open(self.file_path, newline="") as handle:
+                    old_rows = list(csv.DictReader(handle))
+            with open(self.file_path, "w", newline="") as handle:
+                writer = csv.DictWriter(handle, fieldnames=self._fieldnames, restval="")
+                writer.writeheader()
+                writer.writerows(old_rows)
+                writer.writerow(row)
+        else:
+            with open(self.file_path, "a", newline="") as handle:
+                csv.DictWriter(handle, fieldnames=self._fieldnames, restval="").writerow(row)
+        self._initialized = True
+
+
+class LoggingToJSONL(Callback):
+    """Append one JSON record per epoch to ``log.jsonl``: the CSV row's keys
+    plus a wall-clock ``time``, one flushed line each."""
+
+    def __init__(self, file_path, append: bool = True):
+        self.file_path = Path(file_path)
+        self._initialized = False
+        self.append = append
+
+    def epoch_complete(self, state: EngineState) -> None:
+        self.file_path.parent.mkdir(parents=True, exist_ok=True)
+        record = {
+            "time": time.time(),
+            "epoch": state.global_epoch,
+            "stage": state.stage,
+            **{k: float(v) for k, v in state.metrics.items()},
+        }
+        mode = "a" if (self.append or self._initialized) else "w"
+        with open(self.file_path, mode) as handle:
+            handle.write(json.dumps(record) + "\n")
+            handle.flush()
+        self._initialized = True
+
+
+class EarlyStopping(Callback):
+    """Stop fitting after ``patience`` epochs without improvement of
+    ``monitor``; ``better`` is "min", "max" or "auto" (min for a loss)."""
+
+    def __init__(self, monitor: str = "val_loss", patience: int = 1, better: str = "auto"):
+        if better not in ("min", "max", "auto"):
+            raise ValueError(f"better must be min/max/auto, got {better!r}")
+        if better == "auto":
+            better = "min" if "loss" in monitor else "max"
+        self.monitor = monitor
+        self.patience = patience
+        self.better = better
+        self.best: float | None = None
+        self.wait = 0
+
+    def epoch_complete(self, state: EngineState) -> None:
+        if self.monitor not in state.metrics:
+            return
+        score = float(state.metrics[self.monitor])
+        improved = (
+            self.best is None
+            or (self.better == "max" and score > self.best)
+            or (self.better == "min" and score < self.best)
+        )
+        if improved:
+            self.best = score
+            self.wait = 0
+            return
+        self.wait += 1
+        if self.wait >= self.patience:
+            state.stopped = True
+            state.logger.info(
+                f"Early stopping: no {self.monitor} improvement over {self.best:.6g} for {self.wait} epochs "
+                f"(patience {self.patience})"
+            )
+
+
+class Timer(Callback):
+    """Each epoch's wall time, as the metric ``epoch_time``."""
+
+    def __init__(self):
+        self._start = 0.0
+
+    def epoch_start(self, state: EngineState) -> None:
+        self._start = time.perf_counter()
+
+    def epoch_complete(self, state: EngineState) -> None:
+        state.metrics["epoch_time"] = round(time.perf_counter() - self._start, 3)

@@ -2,26 +2,30 @@
 
 Counterpart of ``sensorium_tpu/engine/model.py`` (construction from a
 config's ``argus_params``, EMA, distillation, the train / val / predict
-steps). Not yet here: ``fit``, ``init_from_checkpoint`` and checkpoint I/O.
+steps, the fit loop). Not yet here: ``init_from_checkpoint``, checkpoint I/O
+and preemption.
 
     model = MouseModel(argus_params)           # on the card; device="cpu" to ask for the CPU
     model.set_ema(0.999)
     model.build_state(seed=0, learning_rate=2.4e-3)
     loss = model.train_step(batch)             # a MiceBatch of numpy arrays
     loss, prediction, targets, weights = model.val_step(batch)
+    model.fit(train_loader, val_loader, num_epochs=2, callbacks=[...], metrics=[CorrelationMetric()])
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from sensorium_tpu_torch.data.datasets import MiceBatch
+from sensorium_tpu_torch.engine.callbacks import Callback, EngineState, build_logger
 from sensorium_tpu_torch.engine.losses import get_loss
+from sensorium_tpu_torch.engine.metrics import CorrelationMetric
 from sensorium_tpu_torch.engine.optimizers import get_optimizer
 from sensorium_tpu_torch.engine.state import TrainState
 from sensorium_tpu_torch.engine.steps import make_predict_step, make_train_step, make_val_step
@@ -61,6 +65,7 @@ class MouseModel:
         self._train_step = None
         self._val_step = make_val_step(self.loss_fn)
         self._predict_steps: dict[int | None, Callable] = {}
+        self.logger = build_logger()
 
     # ---------------------------------------------------------------- setup
 
@@ -178,3 +183,92 @@ class MouseModel:
         if squeeze:
             return prediction[0] if mouse_index is not None else prediction[:, 0]
         return prediction
+
+    # ------------------------------------------------------------------ fit
+
+    def fit(
+        self,
+        train_loader,
+        val_loader=None,
+        num_epochs: int = 1,
+        callbacks: Sequence[Callback] = (),
+        metrics: Sequence[CorrelationMetric] = (),
+        stage: str = "train",
+        start_epoch: int = 0,
+    ) -> None:
+        """The train and validation loop: per epoch, every batch of
+        ``train_loader`` through ``train_step``, then (with a ``val_loader``)
+        every batch through ``val_step`` with the metrics, then the
+        callbacks. ``fit_complete`` runs on every callback however the loop
+        ends; one that raises is logged and does not hide the loop's error."""
+        if self.state is None:
+            raise RuntimeError("Call build_state() before fit()")
+        engine_state = EngineState(model=self, stage=stage, logger=self.logger)
+        try:
+            self._fit_epochs(engine_state, train_loader, val_loader, num_epochs, callbacks, metrics, stage,
+                             start_epoch)
+        finally:
+            for callback in callbacks:
+                try:
+                    callback.fit_complete(engine_state)
+                except Exception:
+                    self.logger.exception(f"fit_complete failed in {type(callback).__name__}; continuing")
+
+    def _fit_epochs(self, engine_state, train_loader, val_loader, num_epochs, callbacks, metrics, stage,
+                    start_epoch) -> None:
+        for epoch in range(num_epochs):
+            engine_state.epoch = epoch
+            engine_state.global_epoch = start_epoch + epoch
+            engine_state.metrics = {}
+            for callback in callbacks:
+                callback.epoch_start(engine_state)
+
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(engine_state.global_epoch)
+            # The losses stay on the device until the epoch ends: one copy
+            # to the host per epoch, not a wait for the card every step.
+            losses = [self.train_step(batch) for batch in train_loader]
+            engine_state.metrics["train_loss"] = _mean_on_host(losses)
+
+            if val_loader is not None:
+                for metric in metrics:
+                    metric.reset()
+                val_losses = []
+                for batch in val_loader:
+                    loss, prediction, targets, weights = self.val_step(batch)
+                    val_losses.append(loss)
+                    for metric in metrics:
+                        if hasattr(metric, "batch_stats"):
+                            # Reduced on the device: only (M, N_max, 5) sums cross to the host.
+                            counts, sums = metric.batch_stats(prediction, targets, weights)
+                            metric.update_stats(counts.cpu().numpy(), sums.cpu().numpy())
+                        else:
+                            metric.update(prediction.cpu().numpy(), batch.targets, batch.weights)
+                engine_state.metrics["val_loss"] = _mean_on_host(val_losses)
+                for metric in metrics:
+                    engine_state.metrics.update(metric.epoch_metrics(prefix="val_"))
+
+            lr = self._current_lr()
+            if lr is not None:
+                engine_state.metrics["lr"] = lr
+            self.logger.info(
+                f"{stage} epoch {engine_state.global_epoch}: "
+                + ", ".join(f"{k}={v:.6g}" for k, v in engine_state.metrics.items())
+            )
+            for callback in callbacks:
+                callback.epoch_complete(engine_state)
+            if engine_state.stopped:
+                break
+
+    def _current_lr(self) -> float | None:
+        """The scheduled lr at the current update count, for the log."""
+        if self.schedule is None:
+            return None
+        return float(self.schedule(self.state.step))
+
+
+def _mean_on_host(values: list[torch.Tensor]) -> float:
+    """The mean of 0-d device tensors, copied to the host in one transfer."""
+    if not values:
+        return float("nan")
+    return float(np.mean(torch.stack(values).cpu().numpy()))

@@ -1,7 +1,9 @@
-"""Depthwise-conv kernels (CUDA, ``csrc/dw_conv.cu`` and ``csrc/dw_conv_bwd.cu``),
-their plain versions, and the autograd Functions that join them.
+"""Depthwise-conv kernels (CUDA, ``csrc/dw_conv.cu``, ``csrc/dw_conv_bwd.cu`` and
+``csrc/fused_bn_silu_dw.cu``), their plain versions, and the autograd
+Functions that join them.
 
-Counterpart of ``sensorium_tpu/ops/pallas_dw.py``. Layout is channels-last:
+Counterpart of ``sensorium_tpu/ops/pallas_dw.py`` and
+``sensorium_tpu/ops/pallas_fused.py``. Layout is channels-last:
 
 * ``dw_spatial_fwd(x, w, stride)``: x (B, T, H, W, C), w (k, k, C), stride 1
   or 2, torch "same" padding k // 2, output (B, T, OH, OW, C) with
@@ -12,7 +14,14 @@ Counterpart of ``sensorium_tpu/ops/pallas_dw.py``. Layout is channels-last:
   conv, (B, T, H, W, C) in dy's dtype;
 * ``dw_spatial_dw(x, dy, k, stride)`` and ``dw_temporal_dw(x, dy, k)``: the
   weight gradients, (k, k, C) and (k, C) in fp32. The temporal input
-  gradient is ``dw_temporal_fwd(dy, w.flip(0))`` (odd k).
+  gradient is ``dw_temporal_fwd(dy, w.flip(0))`` (odd k);
+* ``fused_bn_silu_dw_spatial(x, scale, shift, w, stride)``: the spatial conv
+  of ``silu(x * scale + shift)``, with scale and shift (C,) fp32, the folded
+  BN affine (``scale = gamma * rsqrt(var + eps)``, ``shift = beta - mean *
+  scale``). The padding is zero *after* the prologue, and the prologue stays
+  in fp32: only the conv output is rounded to x's dtype, once. (An eager
+  chain that casts ``silu(...)`` back to bf16 before the conv differs from it
+  by that one rounding.) Forward only, with no autograd Function, as in JAX.
 
 ``DwSpatial`` and ``DwTemporal`` are the autograd Functions: each saves
 ``(x, w)`` as the JAX custom VJPs do, and returns dx in x's dtype and dw
@@ -34,7 +43,7 @@ import torch.nn.functional as F
 from sensorium_tpu_torch.ops import _build
 
 LAUNCHES = {name: 0 for name in ("dw_spatial_fwd", "dw_temporal_fwd", "dw_spatial_dx", "dw_spatial_dw",
-                                 "dw_temporal_dw")}
+                                 "dw_temporal_dw", "fused_bn_silu_dw_spatial")}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INT32_MAX = 2**31 - 1
@@ -46,6 +55,7 @@ _SIGNATURES = {
     "dw_spatial_dx": ("dw_conv_bwd", 3, 6),
     "dw_spatial_dw": ("dw_conv_bwd", 4, 7),
     "dw_temporal_dw": ("dw_conv_bwd", 4, 6),
+    "fused_bn_silu_dw_spatial": ("fused_bn_silu_dw", 5, 6),
 }
 # Kernel sizes the weight-gradient kernels are compiled for.
 _GRAD_W_KS = (3, 5)
@@ -160,6 +170,31 @@ def dw_spatial_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch
     return _spatial_valid(xp, w, stride, oh, ow).to(x.dtype)
 
 
+def _check_fused(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, w: torch.Tensor, stride: int) -> None:
+    _check_spatial(x, w, stride)
+    c = x.shape[-1]
+    if scale.shape != (c,) or shift.shape != (c,):
+        raise ValueError(
+            f"fused_bn_silu_dw_spatial: scale and shift must be (C,) with C={c}, "
+            f"got {tuple(scale.shape)} and {tuple(shift.shape)}"
+        )
+
+
+def fused_bn_silu_dw_spatial_plain(
+    x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, w: torch.Tensor, stride: int = 1
+) -> torch.Tensor:
+    """The fp32 prologue, zero padding after it, then the tap sum of
+    ``dw_spatial_plain``, rounded once to x's dtype."""
+    _check_fused(x, scale, shift, w, stride)
+    k = w.shape[0]
+    pad = k // 2
+    acc_dtype = _acc_dtype(x.dtype)
+    act = F.silu(x.to(acc_dtype) * scale.to(acc_dtype) + shift.to(acc_dtype))
+    oh, ow = spatial_out_size(x.shape[2], k, stride), spatial_out_size(x.shape[3], k, stride)
+    padded = F.pad(act, (0, 0, pad, pad, pad, pad))
+    return _spatial_valid(padded, w, stride, oh, ow).to(x.dtype)
+
+
 def dw_spatial_dx_plain(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int, int]) -> torch.Tensor:
     """The JAX construction (``pallas_dw._dw_spatial_vjp_bwd``): dilate the
     cotangent by the stride, pad it with ``k-1-pad`` on the left and so that
@@ -240,6 +275,30 @@ def dw_spatial_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.T
         raise ValueError(f"dw_spatial_fwd: shape {tuple(x.shape)} exceeds the kernel's grid")
     y = torch.empty((b, t, oh, ow, c), dtype=x.dtype, device=x.device)
     _launch("dw_spatial_fwd", x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(), b * t, h, wd, c, k, stride)
+    return y
+
+
+def fused_bn_silu_dw_spatial(
+    x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, w: torch.Tensor, stride: int = 1
+) -> torch.Tensor:
+    """``dw_spatial_fwd(silu(x * scale + shift), w, stride)`` with the prologue
+    in fp32; CUDA kernel, or the plain version on CPU."""
+    _check_fused(x, scale, shift, w, stride)
+    if _on_cpu(x, scale, shift, w):
+        return fused_bn_silu_dw_spatial_plain(x, scale, shift, w, stride)
+    _check_cuda_operands("fused_bn_silu_dw_spatial", x=x, w=w)
+    for name, t in (("scale", scale), ("shift", shift)):
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"fused_bn_silu_dw_spatial: {name} must be a contiguous float32 tensor on {x.device}, "
+                            f"got {t.dtype} on {t.device}")
+    k = w.shape[0]
+    b, t, h, wd, c = x.shape
+    oh, ow = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
+    if b * t * oh > _INT32_MAX or ow * c > _INT32_MAX or h * wd * c > _INT32_MAX:
+        raise ValueError(f"fused_bn_silu_dw_spatial: shape {tuple(x.shape)} exceeds the kernel's grid")
+    y = torch.empty((b, t, oh, ow, c), dtype=x.dtype, device=x.device)
+    _launch("fused_bn_silu_dw_spatial", x.dtype, x.device, x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            w.data_ptr(), y.data_ptr(), b * t, h, wd, c, k, stride)
     return y
 
 

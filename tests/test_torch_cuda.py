@@ -172,9 +172,75 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     (loss_cpu, grads_cpu, none), (loss_cuda, grads_cuda, launches) = out["cpu"], out["cuda"]
     assert set(none.values()) == {0}
     assert launches == {"dw_spatial_fwd": 3, "dw_temporal_fwd": 5, "dw_spatial_dx": 2, "dw_spatial_dw": 2,
-                        "dw_temporal_dw": 2}
+                        "dw_temporal_dw": 2, "fused_bn_silu_dw_spatial": 0}
     np.testing.assert_allclose(loss_cuda, loss_cpu, rtol=1e-4)
     largest = max(g.abs().max().item() for g in grads_cpu.values())
     for name, g in grads_cpu.items():
         bound = max(1e-3 * g.abs().max().item(), 1e-6 * largest)
         assert (grads_cuda[name] - g).abs().max().item() <= bound, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("k", [3, 5])
+def test_fused_kernel_matches_plain(cuda, k, stride, dtype):
+    """BN-apply + SiLU + depthwise at a ragged shape, half the channels dead
+    (scale 0, shift 1: the padding must be zero after the prologue); reruns
+    are bitwise equal."""
+    rng = np.random.default_rng(15)
+    x = rand(rng, 2, 3, 9, 11, 24).to(cuda, dtype)
+    scale = (1.0 + 0.2 * rand(rng, 24)).to(cuda)
+    shift = (0.2 * rand(rng, 24)).to(cuda)
+    scale[12:], shift[12:] = 0.0, 1.0
+    w = (rand(rng, k, k, 24) / k).to(cuda, dtype)
+    before = dw_kernels.LAUNCHES["fused_bn_silu_dw_spatial"]
+    got = dw_kernels.fused_bn_silu_dw_spatial(x, scale, shift, w, stride)
+    torch.cuda.synchronize()
+    assert dw_kernels.LAUNCHES["fused_bn_silu_dw_spatial"] == before + 1
+    assert got.dtype == dtype
+    ref = dw_kernels.fused_bn_silu_dw_spatial_plain(x.float(), scale, shift, w.float(), stride)
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=1e-5)
+    assert all(torch.equal(got, dw_kernels.fused_bn_silu_dw_spatial(x, scale, shift, w, stride))
+               for _ in range(2))
+
+
+@pytest.mark.cuda
+def test_fused_wrapper_refuses_bad_operands_on_the_card(cuda):
+    x = torch.zeros(1, 2, 4, 4, 8, device=cuda)
+    w = torch.zeros(3, 3, 8, device=cuda)
+    with pytest.raises(TypeError, match="scale must be a contiguous float32"):
+        dw_kernels.fused_bn_silu_dw_spatial(x, torch.zeros(8, device=cuda, dtype=torch.float64),
+                                            torch.zeros(8, device=cuda), w)
+    with pytest.raises(TypeError, match="shift must be"):
+        dw_kernels.fused_bn_silu_dw_spatial(x, torch.zeros(8, device=cuda), torch.zeros(8), w)
+
+
+@pytest.mark.cuda
+def test_dwbench_runs_on_the_card(cuda, monkeypatch, capsys):
+    from sensorium_tpu_torch.tools import dwbench
+
+    monkeypatch.setattr(dwbench, "SHAPES", [("tiny-s2", (2, 3, 9, 11, 24, 2))])
+    monkeypatch.setattr(dwbench, "TEMPORAL_SHAPES", [("t-tiny", (2, 6, 4, 4, 24))])
+    assert dwbench.main(["--iters", "2"]) == 0
+    assert len(capsys.readouterr().out.splitlines()) == 2 + len(dwbench.SPATIAL_IMPLS)
+
+
+@pytest.mark.cuda
+def test_native_host_library_builds_on_the_card_machine(cuda, tmp_path, monkeypatch):
+    """The data feed's C++ library compiles with this machine's g++ and gathers as NumPy does."""
+    from sensorium_tpu_torch.data import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "torch_host")
+    monkeypatch.delenv("SENSORIUM_NATIVE", raising=False)
+    native.reset()
+    try:
+        assert native.available() and native.library_path().exists()
+        src = (rand(np.random.default_rng(16), 7, 50) - 0.3).numpy()
+        idx = np.arange(2, 40, 3)
+        out = np.empty((7, idx.size), np.float32)
+        assert native.gather_rows_relu_into(src, idx, out)
+        np.testing.assert_array_equal(out, np.maximum(src[:, idx], 0.0))
+    finally:
+        native.reset()

@@ -48,6 +48,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "sensorium_tpu_torch.ops.dw_kernels" in result["modules"]
     assert "sensorium_tpu_torch.engine.steps" in result["modules"]
     assert "sensorium_tpu_torch.engine.model" in result["modules"]
+    for name in ("tools.dwbench", "data.loader", "data.native", "engine.callbacks"):
+        assert f"sensorium_tpu_torch.{name}" in result["modules"]
 
 
 def test_training_engine_imports_no_jax():
@@ -61,6 +63,27 @@ def test_training_engine_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_data_feed_imports_neither_pillow_nor_scipy():
+    """Only the pHash fold assignment needs them, and it imports them when it hashes."""
+    code = (
+        "import json, sys\n"
+        "import sensorium_tpu_torch.data.mouse_data, sensorium_tpu_torch.data.loader\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'scipy'))))"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_dwbench_refuses_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    from sensorium_tpu_torch.tools import dwbench
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dwbench.main([])
 
 
 def test_entry_points_refuse_cuda_without_a_card():
