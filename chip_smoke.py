@@ -14,8 +14,11 @@ Phases, each of which passes or makes the script exit non-zero:
    unit-scale inputs; bf16 is held to the plain version computed in fp32
    from the same bf16 inputs within one bf16 rounding (rtol 2**-8, atol
    1e-5). Times are CUDA-event medians: the kernel, the plain version, and
-   as a yardstick ``F.conv3d(groups=C)`` on the same data (``library_ms``,
-   which the port never calls), beside the least time the card needs to
+   as a yardstick two cuDNN lowerings of the same conv, which the port
+   never calls: ``F.conv3d(groups=C)`` and ``F.conv2d(groups=C)`` on the
+   channels-last (B*T, C, H, W) view (temporal: kernel (k, 1) on the
+   (B, C, T, H*W) view); ``library_ms`` is the faster of the two per shape,
+   and both are recorded. Beside them, the least time the card needs to
    move the bytes or do the operations (``bound_ms``);
 4. slice: the flagship DwiseNeuro (``configs/true_batch_001.py``, seeded
    random weights, bf16) serves 3 requests through ``Predictor(chunk_size=32)``:
@@ -31,9 +34,14 @@ Phases, each of which passes or makes the script exit non-zero:
    flagship training step (batch 32 x 16 frames) and at ragged shapes, in
    bf16 and fp32. dx is held as the forward kernels are; dw (fp32) within
    1e-5 of the largest value (+1e-5) of the plain version computed in
-   float64 from the same inputs. ``library_ms`` times
-   ``aten.convolution_backward`` of the grouped ``conv3d`` (cuDNN) asked
-   for the input or the weight gradient only;
+   float64 from the same inputs. ``library_ms`` is the faster per shape of
+   ``aten.convolution_backward`` (cuDNN) asked for the input or the weight
+   gradient only, of the grouped ``conv3d`` and of phase 3's 2-D view;
+   both are recorded, with the 2-D gradient's difference from the plain
+   version. The dx cases add edges the kernel's tiling can get wrong: H
+   and W that are not multiples of its tiles, a channel tail (C not a
+   multiple of 8 in bf16 or of 4 in fp32), k = 5 at both strides, and C
+   wider than one channel tile;
 7. train: the flagship ``MouseModel`` (the config's mice_poisson loss and
    AdamW, lr 2.4e-3 held constant, weight decay 0.05, EMA 0.999, seeded
    random weights) takes 2 warm-up and 10 timed steps on one synthetic batch
@@ -211,6 +219,18 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def spatial_2d_view(t):
+    """(B, T, H, W, C) as the channels-last (B*T, C, H, W) view, without a copy."""
+    b, f, h, w, c = t.shape
+    return t.reshape(b * f, h, w, c).permute(0, 3, 1, 2)
+
+
+def temporal_2d_view(t):
+    """(B, T, H, W, C) as the channels-last (B, C, T, H*W) view, without a copy."""
+    b, f, h, w, c = t.shape
+    return t.reshape(b, f, h * w, c).permute(0, 3, 1, 2)
+
+
 def flagship_kernel_shapes() -> list[dict]:
     """The depthwise convs of one flagship chunk forward, grouped by shape."""
     params = FLAGSHIP_NN_MODULE[1]
@@ -265,6 +285,8 @@ def check_kernels(peaks: tuple[float, float]) -> list[dict]:
                 library = lambda: F.conv3d(  # noqa: E731
                     x.permute(0, 4, 1, 2, 3), wl, stride=(1, s, s), padding=(0, k // 2, k // 2), groups=c
                 )
+                x2d, w2d = spatial_2d_view(x), wl[:, :, 0]  # (B*T, C, H, W) channels-last, (C, 1, k, k)
+                library2d = lambda: F.conv2d(x2d, w2d, stride=s, padding=k // 2, groups=c)  # noqa: E731
                 taps = k * k
             else:
                 wt = (torch.randn(k, c, device="cuda", generator=gen) / math.sqrt(k)).to(dtype)
@@ -274,6 +296,8 @@ def check_kernels(peaks: tuple[float, float]) -> list[dict]:
                 library = lambda: F.conv3d(  # noqa: E731
                     x.permute(0, 4, 1, 2, 3), wl, padding=(k // 2, 0, 0), groups=c
                 )
+                x2d, w2d = temporal_2d_view(x), wl[..., 0]  # (B, C, T, H*W) channels-last, (C, 1, k, 1)
+                library2d = lambda: F.conv2d(x2d, w2d, padding=(k // 2, 0), groups=c)  # noqa: E731
                 taps = k
             y = run()
             torch.cuda.synchronize()
@@ -283,13 +307,15 @@ def check_kernels(peaks: tuple[float, float]) -> list[dict]:
                 else dw_kernels.dw_temporal_plain(x.float(), wt.float())
             )
             lib = library().permute(0, 2, 3, 4, 1)
+            lib2d = library2d().permute(0, 2, 3, 1).reshape(ref.shape)
             if y.shape != ref.shape or lib.shape != ref.shape:
                 fail(f"{case['kernel']} {case}: shape {tuple(y.shape)} vs plain {tuple(ref.shape)}")
             err = (y.float() - ref).abs()
             rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
             ok = bool(torch.all(err <= ATOL + rtol * ref.abs()))
             lib_err = float((lib.float() - ref).abs().max())
-            del ref, lib
+            lib2d_err = float((lib2d.float() - ref).abs().max())
+            del ref, lib, lib2d
             row = {
                 "kernel": case["kernel"],
                 "dtype": str(dtype).replace("torch.", ""),
@@ -299,6 +325,7 @@ def check_kernels(peaks: tuple[float, float]) -> list[dict]:
                 "blocks": case["blocks"],
                 "max_abs_err": float(err.max()),
                 "library_max_abs_err": lib_err,
+                "library2d_max_abs_err": lib2d_err,
                 "ok": ok,
             }
             del err
@@ -310,16 +337,18 @@ def check_kernels(peaks: tuple[float, float]) -> list[dict]:
             row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
             row["ms"] = cuda_ms(run)
             row["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
-            row["library_ms"] = cuda_ms(library)
+            row["library3d_ms"], row["library2d_ms"] = cuda_ms(library), cuda_ms(library2d)
+            row["library_ms"] = min(row["library3d_ms"], row["library2d_ms"])
             rows.append(row)
             print(
                 f"kernel {row['kernel']:<16} {row['dtype']:<8} {str(row['shape']):<28} s={row['stride']} k={k} "
                 f"blocks={row['blocks']} err={row['max_abs_err']:.3g} ok={ok} ms={row['ms']:.4f} "
-                f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                f"plain_ms={row['plain_ms']:.4f} library3d_ms={row['library3d_ms']:.4f} "
+                f"library2d_ms={row['library2d_ms']:.4f} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, {nbytes / 1e9:.3f} GB)",
                 flush=True,
             )
-            del x, wt, y
+            del x, wt, y, x2d
             torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -427,12 +456,17 @@ def profile(fn, label: str, trace: Path, top_n: int = 15) -> dict:
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top_n]
     rows = [{"kernel": e.key[:120], "count": e.count, "ms": e.self_device_time_total / 1e3,
              "share": e.self_device_time_total / busy_us if busy_us else 0.0} for e in top]
+    # The port's own kernels by the CUDA function names of csrc/ (dw_spatial_dw_partial for dw_spatial_dw).
+    port = {name: sum(e.self_device_time_total for e in kernels if f"{name}_" in e.key) / 1e3
+            for name in ("dw_spatial_fwd", "dw_temporal_fwd", "dw_spatial_dx", "dw_spatial_dw", "dw_temporal_dw")}
     print(f"profile: {label} under torch.profiler, wall {wall_us / 1e3:.1f} ms, "
           f"device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.1%} of wall)", flush=True)
     for r in rows:
         print(f"profile:   {r['ms']:9.2f} ms {r['share']:6.1%} x{r['count']:<5} {r['kernel']}", flush=True)
+    print("profile:   the port's kernels: " + ", ".join(
+        f"{name} {ms:.2f} ms ({ms * 1e3 / busy_us if busy_us else 0.0:.2%})" for name, ms in port.items()), flush=True)
     prof.export_chrome_trace(str(trace))
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3, "top_kernels": rows}
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3, "top_kernels": rows, "port_kernels_ms": port}
 
 
 def card_against_cpu(record: dict) -> None:
@@ -487,6 +521,13 @@ def backward_cases() -> list[dict]:
                     cases.append({"kernel": kernel, "hw": hw, "c": 24, "stride": stride, "k": k, "blocks": [],
                                   "batch": (2, 3)})
             cases.append({"kernel": "dw_temporal_dw", "hw": hw, "c": 24, "k": k, "blocks": [], "batch": (2, 3)})
+    # dx: sizes that are not multiples of the tiles, channel tails, C wider than a channel tile.
+    for hw, c, ks in (((33, 17), 24, (3, 5)), ((7, 5), 24, (3, 5)), ((9, 11), 20, (3,)), ((9, 11), 22, (3,)),
+                      ((10, 12), 264, (3,))):
+        for k in ks:
+            for stride in (1, 2):
+                cases.append({"kernel": "dw_spatial_dx", "hw": hw, "c": c, "stride": stride, "k": k, "blocks": [],
+                              "batch": (2, 3)})
     return cases
 
 
@@ -511,6 +552,7 @@ def check_backward_kernels(peaks: tuple[float, float]) -> list[dict]:
                 dy = torch.randn(b, t, h, w, c, device="cuda", generator=gen).to(dtype)
                 wl = torch.empty(c, 1, k, 1, 1, device="cuda", dtype=dtype)
                 conv = {"stride": [1, 1, 1], "padding": [k // 2, 0, 0]}
+                view2d, conv2d = temporal_2d_view, {"stride": [1, 1], "padding": [k // 2, 0]}
                 run = lambda: dw_kernels.dw_temporal_dw(x, dy, k)  # noqa: E731
                 plain = lambda: dw_kernels.dw_temporal_dw_plain(x, dy, k)  # noqa: E731
                 ref = dw_kernels.dw_temporal_dw_plain(x.double(), dy.double(), k)
@@ -521,6 +563,7 @@ def check_backward_kernels(peaks: tuple[float, float]) -> list[dict]:
                 wt = (torch.randn(k, k, c, device="cuda", generator=gen) / k).to(dtype)
                 wl = wt.permute(2, 0, 1)[:, None, None].contiguous()  # (C, 1, 1, k, k)
                 conv = {"stride": [1, s, s], "padding": [0, k // 2, k // 2]}
+                view2d, conv2d = spatial_2d_view, {"stride": [s, s], "padding": [k // 2, k // 2]}
                 taps = k * k
                 if name == "dw_spatial_dx":
                     run = lambda: dw_kernels.dw_spatial_dx(dy, wt, s, (h, w))  # noqa: E731
@@ -536,11 +579,21 @@ def check_backward_kernels(peaks: tuple[float, float]) -> list[dict]:
             library = lambda: backward(  # noqa: E731
                 dy_ncdhw, x_ncdhw, wl, None, conv["stride"], conv["padding"], [1, 1, 1], False, [0, 0, 0], c, mask
             )
+            x2d, dy2d, wl2d = view2d(x), view2d(dy), wl.squeeze(2 if name != "dw_temporal_dw" else 4)
+            library2d = lambda: backward(  # noqa: E731
+                dy2d, x2d, wl2d, None, conv2d["stride"], conv2d["padding"], [1, 1], False, [0, 0], c, mask
+            )
             y = run()
             torch.cuda.synchronize()
             if y.shape != ref.shape:
                 fail(f"{name} {case}: shape {tuple(y.shape)} vs plain {tuple(ref.shape)}")
             err = (y.to(ref.dtype) - ref).abs()
+            if name == "dw_spatial_dx":  # the 2-D library's gradient, back in the kernel's layout
+                lib2d = library2d()[0].permute(0, 2, 3, 1).reshape(ref.shape)
+            else:
+                lib2d = library2d()[1][:, 0].permute(1, 2, 0).reshape(ref.shape)
+            lib2d_err = float((lib2d.to(ref.dtype) - ref).abs().max())
+            del lib2d
             if name == "dw_spatial_dx":
                 rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
                 ok = bool(torch.all(err <= ATOL + rtol * ref.abs()))
@@ -559,6 +612,7 @@ def check_backward_kernels(peaks: tuple[float, float]) -> list[dict]:
                 "blocks": case["blocks"],
                 "max_abs_err": float(err.max()),
                 "max_abs_ref": float(ref.abs().max()),
+                "library2d_max_abs_err": lib2d_err,
                 "ok": ok,
             }
             del err, ref
@@ -570,16 +624,18 @@ def check_backward_kernels(peaks: tuple[float, float]) -> list[dict]:
             row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
             row["ms"] = cuda_ms(run)
             row["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
-            row["library_ms"] = cuda_ms(library)
+            row["library3d_ms"], row["library2d_ms"] = cuda_ms(library), cuda_ms(library2d)
+            row["library_ms"] = min(row["library3d_ms"], row["library2d_ms"])
             rows.append(row)
             print(
                 f"kernel {name:<16} {row['dtype']:<8} {str(row['shape']):<28} s={s} k={k} "
                 f"blocks={row['blocks']} err={row['max_abs_err']:.3g} (max |ref| {row['max_abs_ref']:.3g}) ok={ok} "
-                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library3d_ms={row['library3d_ms']:.4f} "
+                f"library2d_ms={row['library2d_ms']:.4f} (err {lib2d_err:.3g}) "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, {nbytes / 1e9:.3f} GB)",
                 flush=True,
             )
-            del x, dy, y
+            del x, dy, y, x2d, dy2d
             torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1045,7 +1101,7 @@ def _summed(rows: list[dict], name: str) -> dict:
     def total(key):
         return sum(r[key] * len(r["blocks"]) for r in flagship)
 
-    return {
+    summed = {
         "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
@@ -1053,6 +1109,9 @@ def _summed(rows: list[dict], name: str) -> dict:
         "bound_by": "bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
         "library_ms": total("library_ms"),
     }
+    if "library2d_ms" in flagship[0]:
+        summed["library2d_ms"], summed["library3d_ms"] = total("library2d_ms"), total("library3d_ms")
+    return summed
 
 
 def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused_rows: list[dict],
@@ -1077,6 +1136,10 @@ def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused
             "replaces": replaced,
             "launches": launches[name],
             **_summed(rows, name),
+            "library_note": "library_ms is, per shape, the faster cuDNN lowering of the same op: the grouped "
+                            "conv3d, or conv2d(groups=C) on the channels-last (B*T, C, H, W) view (temporal: "
+                            "kernel (k, 1) on (B, C, T, H*W)); backward kernels through aten.convolution_backward "
+                            "asked for that one gradient; both sums are recorded",
             "scope": "sum over the 9 blocks' calls of one flagship train step (32 clips x 16 frames), bf16; "
                      f"launches over {TIMED_STEPS} train steps",
             "launches_serve": serve_launches[name],

@@ -10,15 +10,40 @@
 // dilated by the stride and edge-padded, with the taps flipped. Here the
 // transposed conv is computed directly and nothing is materialised:
 //   dx[n,h,w,c] = sum_{di,dj} w[di,dj,c] * dy[n, (h+p-di)/s, (w+p-dj)/s, c]
-// over the taps where h+p-di and w+p-dj are >= 0, divisible by s and in range.
-// At stride 2 the parity of h and w picks the taps; rows and columns that the
-// strided forward never read get no tap and so 0, which is what the JAX right
-// pad is there for. Bound: bytes. It reads dy and writes dx once, the same
-// bytes as the forward (block 0 at batch 32: 2.35 GB in bf16, >= 0.70 ms at
-// 3.35 TB/s), with k*k (stride 1) or ~k*k/4 (stride 2) multiply-adds per
-// output. Design: the forward's, one block per dx row, neighbouring threads
-// on neighbouring channels, fp32 accumulation rounded once to x's type,
-// 64-bit offsets (block 0's dx holds 9.4e8 elements).
+// over the taps where h+p-di and w+p-dj are >= 0, divisible by s and in range;
+// p = k/2. Bound: bytes. It reads dy and writes dx once (block 0 of a batch of
+// 32 x 16 frames: 2.35 GB in bf16, >= 0.70 ms at 3.35 TB/s; the 9 blocks of a
+// step >= 2.42 ms), with k*k multiply-adds per output at stride 1 and k*k per
+// 2x2 outputs at stride 2.
+// Design (dw_spatial_dx_kernel):
+//  - k and the stride are template parameters (k in {3, 5}, stride in {1, 2}),
+//    so every tap loop unrolls and no division is left in it. A "step" is one
+//    dx row (column) at stride 1 and two at stride 2: at stride 2 a thread
+//    computes the 2x2 micro-tile of dx rows 2a..2a+1 and columns 2b..2b+1, and
+//    the parity of each output picks its taps at compile time, so each
+//    micro-tile does exactly k*k multiply-adds per channel and skips nothing.
+//    A step reads the dy rows a-lo .. a+hi (lo = p/s, hi = ceil(p/s)).
+//  - A thread owns one 16-byte vector of channels (8 bf16 or 4 fp32) and keeps
+//    its k*k weight vectors in registers, packed as loaded; neighbouring
+//    threads own neighbouring vectors, so a warp reads and writes 4 pixels of
+//    128 contiguous bytes.
+//  - A block owns one frame n (or a group of its row steps), a tile of 8
+//    channel vectors and a tile of up to 32 column steps. It walks its row
+//    steps in bands and stages the dy rows they read, with the halo and zeros
+//    outside dy, in a ring of rows in shared memory with cp.async: the next
+//    band's new rows are copied while this band computes (double-buffered),
+//    and every dy element leaves L2 once per block. Out-of-range rows and
+//    columns of dy are zeros in the ring, so the tap loops have no bounds
+//    checks; dx rows and columns that the strided forward never read come out
+//    0, as the JAX right pad makes them.
+//  - The tile arithmetic (band, column tile, bands per block, shared-memory
+//    bytes) comes from the wrapper (ops/dw_kernels.py dx_launch_geometry);
+//    the launcher derives the grid from it and refuses shared-memory bytes
+//    that do not match its own count.
+//  - 32-bit offsets inside a frame, one 64-bit frame base; fp32 accumulation
+//    rounded once to dy's type; one pass, no atomics, so reruns are bitwise
+//    equal. Where C is not a multiple of the vector width (or a pointer is not
+//    16-byte aligned) the same kernel stages and stores element by element.
 //
 // dw_spatial_dw replaces _dw_spatial_grad_w (_dw_spatial_dw_kernel and, at
 // stride 2, _dw_spatial_dw_s2_kernel on parity planes):
@@ -40,7 +65,7 @@
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing (the caller passes dx, the workspace and dw) and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a kernel size it was not
-// compiled for (spatial and temporal k = 3 or 5).
+// compiled for (spatial and temporal k = 3 or 5) or a dx geometry it refuses.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -61,39 +86,214 @@ constexpr int kThreads = 256;
 constexpr int kLanes = 32;  // channels per reduction block (threadIdx.x)
 constexpr int kRows = 8;    // position lanes per reduction block (threadIdx.y)
 
-// One block per dx row (n, h); its threads stride over the W*C elements of
-// the row, channel fastest.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dw_spatial_dx_kernel(const T* __restrict__ dy, const T* __restrict__ w, T* __restrict__ dx,
-                     int h, int wd, int c, int oh, int ow, int k, int stride) {
-  const int64_t row = blockIdx.x;
-  const int in_h = static_cast<int>(row % h);
-  const int64_t n = row / h;
-  const int pad = k / 2;
-  const int row_len = wd * c;
-  const T* dyn = dy + n * static_cast<int64_t>(oh) * ow * c;
-  T* dxrow = dx + row * static_cast<int64_t>(row_len);
-  for (int j = threadIdx.x; j < row_len; j += blockDim.x) {
-    const int ch = j % c;
-    const int in_w = j / c;
-    float acc = 0.0f;
-    for (int di = 0; di < k; ++di) {
-      const int num_h = in_h + pad - di;
-      if (num_h < 0 || num_h % stride != 0) continue;
-      const int out_h = num_h / stride;
-      if (out_h >= oh) continue;
-      const T* dyrow = dyn + static_cast<int64_t>(out_h) * ow * c + ch;
-      const T* wrow = w + di * k * c + ch;
-      for (int dj = 0; dj < k; ++dj) {
-        const int num_w = in_w + pad - dj;
-        if (num_w < 0 || num_w % stride != 0) continue;
-        const int out_w = num_w / stride;
-        if (out_w >= ow) continue;
-        acc = fmaf(to_float(dyrow[static_cast<int64_t>(out_w) * c]), to_float(wrow[dj * c]), acc);
+// ---------------------------------------------------------------- dw_spatial_dx
+
+constexpr int kDxThreads = 256;
+constexpr int kDxTileVecs = 8;                      // channel vectors per block
+constexpr int kDxLanes = kDxThreads / kDxTileVecs;  // position lanes per block
+
+// One 16-byte vector of channels: 8 bf16 or 4 fp32, as 4 32-bit words.
+template <typename T> struct Vec16;
+
+template <> struct Vec16<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ uint4 load(const float* p, int valid) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) u[i] = i < valid ? __float_as_uint(p[i]) : 0u;
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+  static __device__ __forceinline__ void fma(float (&acc)[4], uint4 a, uint4 b) {
+    acc[0] = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc[0]);
+    acc[1] = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc[1]);
+    acc[2] = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc[2]);
+    acc[3] = fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc[3]);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&acc)[4]) {
+    return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]), __float_as_uint(acc[2]),
+                      __float_as_uint(acc[3]));
+  }
+};
+
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ uint4 load(const __nv_bfloat16* p, int valid) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t lo = 2 * i < valid ? __bfloat16_as_ushort(p[2 * i]) : 0u;
+      const uint32_t hi = 2 * i + 1 < valid ? __bfloat16_as_ushort(p[2 * i + 1]) : 0u;
+      u[i] = lo | (hi << 16);
+    }
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+  // Element 2i is the low half of word i, 2i+1 the high half.
+  static __device__ __forceinline__ void fma2(float& e0, float& e1, uint32_t a, uint32_t b) {
+    e0 = fmaf(__uint_as_float(a << 16), __uint_as_float(b << 16), e0);
+    e1 = fmaf(__uint_as_float(a & 0xffff0000u), __uint_as_float(b & 0xffff0000u), e1);
+  }
+  static __device__ __forceinline__ void fma(float (&acc)[8], uint4 a, uint4 b) {
+    fma2(acc[0], acc[1], a.x, b.x);
+    fma2(acc[2], acc[3], a.y, b.y);
+    fma2(acc[4], acc[5], a.z, b.z);
+    fma2(acc[6], acc[7], a.w, b.w);
+  }
+  static __device__ __forceinline__ uint32_t pack2(float e0, float e1) {
+    return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(e0))) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(e1))) << 16);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&acc)[8]) {
+    return make_uint4(pack2(acc[0], acc[1]), pack2(acc[2], acc[3]), pack2(acc[4], acc[5]), pack2(acc[6], acc[7]));
+  }
+};
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// The launch geometry of dw_spatial_dx_kernel (ops/dw_kernels.py dx_launch_geometry).
+// Row and column steps are dy's rows and columns: oh = ceil(h / S) for odd k
+// and padding k/2, and likewise ow.
+struct DxGeometry {
+  int h, wd, c, oh, ow;
+  int band;              // row steps per band
+  int col_tile;          // column steps per block
+  int bands_per_block;   // bands walked by one block
+  int groups;            // blocks per frame along the rows
+  int ring;              // dy rows held in the ring
+  int tile_cols;         // dy columns per ring row: col_tile + lo + hi
+  int vec;               // 1: 16-byte copies and stores; 0: element by element
+};
+
+// dy rows [r_begin, r_end] of frame dyn, columns col0 - LO .. col0 - LO +
+// tile_cols - 1, this block's channel vectors, into their ring slots; zeros
+// outside dy.
+template <typename T, int LO>
+__device__ __forceinline__ void stage_dy_rows(uint4* __restrict__ ring, const T* __restrict__ dyn,
+                                              const DxGeometry& g, int r_begin, int r_end, int col0, int cv0) {
+  constexpr int kVec = Vec16<T>::kN;
+  const int chunks = (r_end - r_begin + 1) * g.tile_cols * kDxTileVecs;
+  for (int e = threadIdx.x; e < chunks; e += kDxThreads) {
+    const int v = e % kDxTileVecs;
+    const int rest = e / kDxTileVecs;
+    const int cc = rest % g.tile_cols;
+    const int r = r_begin + rest / g.tile_cols;
+    const int col = col0 - LO + cc;
+    const int ch = (cv0 + v) * kVec;
+    uint4* dst = ring + (((r + LO) % g.ring) * g.tile_cols + cc) * kDxTileVecs + v;
+    const bool inside = r >= 0 && r < g.oh && col >= 0 && col < g.ow && ch < g.c;
+    const T* src = inside ? dyn + (r * g.ow + col) * g.c + ch : dyn;
+    if (g.vec) {
+      cp_async16(dst, src, inside ? 16 : 0);
+    } else {
+      *dst = inside ? Vec16<T>::load(src, g.c - ch) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// Block (frame n and row group, channel tile, column tile); thread (channel
+// vector v = tid % 8, position lane tid / 8). The ring holds dy row r in slot
+// (r + LO) % ring; each band adds its `band` new rows while the last band's
+// are read. For k = 3 the registers are capped so that 3 blocks fit an SM:
+// at the small frames of the deep blocks a block's life is short, and the
+// copies of one block hide behind the arithmetic of the others.
+template <typename T, int K, int S>
+__global__ void __launch_bounds__(kDxThreads)
+dw_spatial_dx_kernel(const T* __restrict__ dy, const T* __restrict__ w, T* __restrict__ dx, const DxGeometry g) {
+  using V = Vec16<T>;
+  constexpr int kVec = V::kN;
+  constexpr int kP = K / 2;
+  constexpr int kLo = kP / S;
+  constexpr int kHi = (kP + S - 1) / S;
+  extern __shared__ uint4 ring[];  // [g.ring][g.tile_cols][kDxTileVecs]
+
+  const int v = threadIdx.x % kDxTileVecs;
+  const int lane = threadIdx.x / kDxTileVecs;
+  const int group = blockIdx.x % g.groups;
+  const int64_t n = blockIdx.x / g.groups;
+  const int cv0 = blockIdx.y * kDxTileVecs;
+  const int cv = cv0 + v;
+  const int ch = cv * kVec;
+  const int col0 = blockIdx.z * g.col_tile;
+  const int step0 = group * g.bands_per_block * g.band;
+  const int step_end = min(step0 + g.bands_per_block * g.band, g.oh);
+  const T* dyn = dy + n * g.oh * g.ow * g.c;
+  T* dxn = dx + n * g.h * g.wd * g.c;
+
+  stage_dy_rows<T, kLo>(ring, dyn, g, step0 - kLo, step0 + g.band - 1 + kHi, col0, cv0);
+  cp_async_commit();
+  uint4 wv[K * K];  // loaded while the first band's rows are in flight
+#pragma unroll
+  for (int t = 0; t < K * K; ++t) {
+    if (ch >= g.c) {
+      wv[t] = make_uint4(0u, 0u, 0u, 0u);
+    } else if (g.vec) {
+      wv[t] = *reinterpret_cast<const uint4*>(w + t * g.c + ch);
+    } else {
+      wv[t] = V::load(w + t * g.c + ch, g.c - ch);
+    }
+  }
+  for (int s = step0; s < step_end; s += g.band) {
+    if (s + g.band < step_end) {
+      stage_dy_rows<T, kLo>(ring, dyn, g, s + g.band + kHi, s + 2 * g.band - 1 + kHi, col0, cv0);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+
+    const int positions = min(g.band, step_end - s) * g.col_tile;
+    for (int pos = lane; pos < positions; pos += kDxLanes) {
+      const int rs = pos / g.col_tile;
+      const int cs = pos - rs * g.col_tile;
+      const int a = s + rs;
+      const int b = col0 + cs;
+      if (b >= g.ow || ch >= g.c) continue;
+      const int slot_a = (a + kLo) % g.ring;
+#pragma unroll
+      for (int rh = 0; rh < S; ++rh) {
+        const int hh = a * S + rh;
+        if (hh >= g.h) continue;
+#pragma unroll
+        for (int rw = 0; rw < S; ++rw) {
+          const int ww = b * S + rw;
+          if (ww >= g.wd) continue;
+          float acc[kVec];
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) acc[i] = 0.0f;
+#pragma unroll
+          for (int di = 0; di < K; ++di) {
+            if ((rh + kP - di) % S != 0) continue;  // decided at compile time
+            int slot = slot_a + (rh + kP - di) / S;
+            slot += slot < 0 ? g.ring : 0;
+            slot -= slot >= g.ring ? g.ring : 0;
+            const uint4* row = ring + (slot * g.tile_cols + cs + kLo) * kDxTileVecs + v;
+#pragma unroll
+            for (int dj = 0; dj < K; ++dj) {
+              if ((rw + kP - dj) % S != 0) continue;
+              V::fma(acc, row[(rw + kP - dj) / S * kDxTileVecs], wv[di * K + dj]);
+            }
+          }
+          T* out = dxn + (hh * g.wd + ww) * g.c + ch;
+          if (g.vec) {
+            *reinterpret_cast<uint4*>(out) = V::pack(acc);
+          } else {
+#pragma unroll
+            for (int i = 0; i < kVec; ++i) {
+              if (ch + i < g.c) out[i] = from_float<T>(acc[i]);
+            }
+          }
+        }
       }
     }
-    dxrow[j] = from_float<T>(acc);
+    __syncthreads();
   }
 }
 
@@ -204,21 +404,63 @@ int finish_reduction(const float* ws, float* out, int slabs, int len, cudaStream
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_spatial_dx(const void* dy, const void* w, void* dx, int64_t n, int64_t h, int64_t wd,
-                      int64_t c, int64_t k, int64_t stride, void* stream) {
-  const int64_t pad = k / 2;
-  const int64_t oh = (h + 2 * pad - k) / stride + 1;
-  const int64_t ow = (wd + 2 * pad - k) / stride + 1;
-  const int64_t rows = n * h;
-  if (rows > 0 && wd * c > 0) {
-    dw_spatial_dx_kernel<T><<<static_cast<unsigned int>(rows), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(dy), static_cast<const T*>(w), static_cast<T*>(dx),
-        static_cast<int>(h), static_cast<int>(wd), static_cast<int>(c), static_cast<int>(oh),
-        static_cast<int>(ow), static_cast<int>(k), static_cast<int>(stride));
+template <typename T, int K, int S>
+int launch_spatial_dx_kernel(const T* dy, const T* w, T* dx, const DxGeometry& g, dim3 grid, int smem,
+                             cudaStream_t stream) {
+  auto* kernel = dw_spatial_dx_kernel<T, K, S>;
+  if (smem > 48 * 1024) {
+    const cudaError_t status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (status != cudaSuccess) return static_cast<int>(status);
   }
+  kernel<<<grid, kDxThreads, smem, stream>>>(dy, w, dx, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// band, col_tile, bands_per_block and smem_bytes come from the wrapper; the
+// rest of the geometry follows from them here.
+template <typename T>
+int launch_spatial_dx(const void* dy, const void* w, void* dx, int64_t n, int64_t h, int64_t wd, int64_t c,
+                      int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t bands_per_block,
+                      int64_t smem_bytes, void* stream) {
+  constexpr int kVec = Vec16<T>::kN;
+  if ((k != 3 && k != 5) || (stride != 1 && stride != 2) || band < 1 || col_tile < 1 || bands_per_block < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t pad = k / 2;
+  const int64_t lo = pad / stride, hi = (pad + stride - 1) / stride;
+  DxGeometry g;
+  g.h = static_cast<int>(h);
+  g.wd = static_cast<int>(wd);
+  g.c = static_cast<int>(c);
+  g.oh = static_cast<int>((h + 2 * pad - k) / stride + 1);
+  g.ow = static_cast<int>((wd + 2 * pad - k) / stride + 1);
+  g.band = static_cast<int>(band);
+  g.col_tile = static_cast<int>(col_tile);
+  g.bands_per_block = static_cast<int>(bands_per_block);
+  const int64_t bands = (g.oh + band - 1) / band;
+  g.groups = static_cast<int>((bands + bands_per_block - 1) / bands_per_block);
+  g.ring = static_cast<int>((bands_per_block > 1 ? 2 * band : band) + lo + hi);
+  g.tile_cols = static_cast<int>(col_tile + lo + hi);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  g.vec = c % kVec == 0 && aligned(dy) && aligned(w) && aligned(dx);
+  if (smem_bytes != static_cast<int64_t>(g.ring) * g.tile_cols * kDxTileVecs * 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0 || h == 0 || wd == 0 || c == 0) return static_cast<int>(cudaGetLastError());
+  const int64_t cvecs = (c + kVec - 1) / kVec;
+  const dim3 grid(static_cast<unsigned int>(n * g.groups), static_cast<unsigned int>((cvecs + kDxTileVecs - 1) / kDxTileVecs),
+                  static_cast<unsigned int>((g.ow + col_tile - 1) / col_tile));
+  const auto* dyp = static_cast<const T*>(dy);
+  const auto* wp = static_cast<const T*>(w);
+  auto* dxp = static_cast<T*>(dx);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int smem = static_cast<int>(smem_bytes);
+  if (k == 3) {
+    return stride == 1 ? launch_spatial_dx_kernel<T, 3, 1>(dyp, wp, dxp, g, grid, smem, s)
+                       : launch_spatial_dx_kernel<T, 3, 2>(dyp, wp, dxp, g, grid, smem, s);
+  }
+  return stride == 1 ? launch_spatial_dx_kernel<T, 5, 1>(dyp, wp, dxp, g, grid, smem, s)
+                     : launch_spatial_dx_kernel<T, 5, 2>(dyp, wp, dxp, g, grid, smem, s);
 }
 
 template <typename T>
@@ -280,13 +522,17 @@ int launch_temporal_dw(const void* x, const void* dy, void* ws, void* out, int64
 extern "C" {
 
 int dw_spatial_dx_f32(const void* dy, const void* w, void* dx, int64_t n, int64_t h, int64_t wd, int64_t c,
-                      int64_t k, int64_t stride, void* stream) {
-  return launch_spatial_dx<float>(dy, w, dx, n, h, wd, c, k, stride, stream);
+                      int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t bands_per_block,
+                      int64_t smem_bytes, void* stream) {
+  return launch_spatial_dx<float>(dy, w, dx, n, h, wd, c, k, stride, band, col_tile, bands_per_block, smem_bytes,
+                                  stream);
 }
 
 int dw_spatial_dx_bf16(const void* dy, const void* w, void* dx, int64_t n, int64_t h, int64_t wd, int64_t c,
-                       int64_t k, int64_t stride, void* stream) {
-  return launch_spatial_dx<__nv_bfloat16>(dy, w, dx, n, h, wd, c, k, stride, stream);
+                       int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t bands_per_block,
+                       int64_t smem_bytes, void* stream) {
+  return launch_spatial_dx<__nv_bfloat16>(dy, w, dx, n, h, wd, c, k, stride, band, col_tile, bands_per_block,
+                                          smem_bytes, stream);
 }
 
 int dw_spatial_dw_f32(const void* x, const void* dy, void* ws, void* out, int64_t n, int64_t h, int64_t wd,

@@ -52,19 +52,72 @@ _ENTRIES: dict[str, ctypes._CFuncPtr] = {}
 _SIGNATURES = {
     "dw_spatial_fwd": ("dw_conv", 3, 6),
     "dw_temporal_fwd": ("dw_conv", 3, 5),
-    "dw_spatial_dx": ("dw_conv_bwd", 3, 6),
+    "dw_spatial_dx": ("dw_conv_bwd", 3, 10),
     "dw_spatial_dw": ("dw_conv_bwd", 4, 7),
     "dw_temporal_dw": ("dw_conv_bwd", 4, 6),
     "fused_bn_silu_dw_spatial": ("fused_bn_silu_dw", 5, 6),
 }
-# Kernel sizes the weight-gradient kernels are compiled for.
+# Kernel sizes the weight-gradient and dx kernels are compiled for.
 _GRAD_W_KS = (3, 5)
+_DX_KS = (3, 5)
 # Channels per reduction block and position lanes per block (dw_conv_bwd.cu).
 _LANES, _ROWS = 32, 8
+# dw_spatial_dx_kernel (dw_conv_bwd.cu, 256 threads a block): 16-byte channel
+# vectors per block; output steps per band (four for each of the block's 32
+# position lanes) and column steps per block; blocks per SM that the row
+# groups aim for.
+_DX_TILE_VECS = 8
+_DX_POSITIONS, _DX_MAX_COL_TILE = 128, 32
+_DX_BLOCKS_PER_SM = 4
+# Shared memory a block can use on Hopper, and CUDA's grid limits.
+_MAX_SMEM_BYTES = 232_448
+_MAX_GRID = (_INT32_MAX, 65535, 65535)
 
 
 def spatial_out_size(size: int, k: int, stride: int) -> int:
     return (size + 2 * (k // 2) - k) // stride + 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dx_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, itemsize: int, sms: int) -> dict:
+    """The tiling of ``dw_spatial_dx_kernel`` for ``n`` frames of dx (h, wd, c).
+
+    A step is one dx row (column) at stride 1 and two at stride 2, fed by dy
+    row (column) a and its halo; there are as many steps as dy has rows
+    (columns). A block owns a group of one frame's row steps, 8 channel
+    vectors of 16 bytes and ``col_tile`` column steps; it walks its row steps
+    ``band`` at a time and holds the dy rows they read in a ring of ``ring``
+    rows in shared memory.
+    Row groups split a frame only where the frames alone give fewer than
+    ``_DX_BLOCKS_PER_SM`` blocks per SM. The kernel takes ``band``,
+    ``col_tile``, ``bands_per_block`` and ``smem_bytes`` and derives the rest.
+    """
+    vec = 16 // itemsize
+    pad = k // 2
+    lo, hi = pad // stride, _cdiv(pad, stride)
+    rows, cols = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
+    col_tile = min(cols, _DX_MAX_COL_TILE)
+    band = max(1, min(rows, _cdiv(_DX_POSITIONS, col_tile)))
+    bands = _cdiv(rows, band)
+    channel_tiles, col_tiles = _cdiv(_cdiv(c, vec), _DX_TILE_VECS), _cdiv(cols, col_tile)
+    groups = min(bands, max(1, _cdiv(_DX_BLOCKS_PER_SM * sms, n * channel_tiles * col_tiles)))
+    bands_per_block = _cdiv(bands, groups)
+    groups = _cdiv(bands, bands_per_block)
+    ring = (2 * band if bands_per_block > 1 else band) + lo + hi
+    return {
+        "lo": lo,
+        "hi": hi,
+        "band": band,
+        "col_tile": col_tile,
+        "bands_per_block": bands_per_block,
+        "groups": groups,
+        "ring": ring,
+        "grid": (n * groups, channel_tiles, col_tiles),
+        "smem_bytes": ring * (col_tile + lo + hi) * _DX_TILE_VECS * 16,
+    }
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -330,11 +383,16 @@ def dw_spatial_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int,
     if _on_cpu(dy, w):
         return dw_spatial_dx_plain(dy, w, stride, hw)
     _check_cuda_operands("dw_spatial_dx", dy=dy, w=w)
-    if b * t * h > _INT32_MAX or wd * c > _INT32_MAX or oh * ow * c > _INT32_MAX:
+    if k not in _DX_KS:
+        raise NotImplementedError(f"dw_spatial_dx: the kernel is compiled for k in {_DX_KS}, got k={k}")
+    sms = torch.cuda.get_device_properties(dy.device).multi_processor_count
+    geo = dx_launch_geometry(b * t, h, wd, c, k, stride, dy.element_size(), sms)
+    if (h * wd * c > _INT32_MAX or oh * ow * c > _INT32_MAX
+            or any(g > m for g, m in zip(geo["grid"], _MAX_GRID)) or geo["smem_bytes"] > _MAX_SMEM_BYTES):
         raise ValueError(f"dw_spatial_dx: shape {tuple(dy.shape)} exceeds the kernel's grid")
     dx = torch.empty((b, t, h, wd, c), dtype=dy.dtype, device=dy.device)
     _launch("dw_spatial_dx", dy.dtype, dy.device, dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
-            b * t, h, wd, c, k, stride)
+            b * t, h, wd, c, k, stride, geo["band"], geo["col_tile"], geo["bands_per_block"], geo["smem_bytes"])
     return dx
 
 

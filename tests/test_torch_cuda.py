@@ -138,6 +138,61 @@ def test_backward_kernels_match_plain(cuda, hw, k, stride, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "hw, c, k, stride",
+    [(hw, 24, k, s) for hw in ((33, 17), (7, 5)) for k in (3, 5) for s in (1, 2)]
+    + [((9, 11), c, 3, s) for c in (20, 22) for s in (1, 2)]
+    + [((10, 12), 264, 3, s) for s in (1, 2)],
+)
+def test_dx_kernel_matches_plain_at_tile_edges(cuda, hw, c, k, stride, dtype):
+    """The edges of dw_spatial_dx's tiling: H and W that are not multiples of
+    its bands and micro-tiles, a channel tail (c=20 in bf16, c=22 in both:
+    element-by-element copies), k = 5 at both strides, and C wider than one
+    tile of 8 channel vectors (c=264). Held as test_backward_kernels_match_plain
+    holds dx."""
+    rng = np.random.default_rng(17)
+    w = (rand(rng, k, k, c) / k).to(cuda, dtype)
+    oh, ow = (dw_kernels.spatial_out_size(s, k, stride) for s in hw)
+    dy = rand(rng, 2, 3, oh, ow, c).to(cuda, dtype)
+    before = dw_kernels.LAUNCHES["dw_spatial_dx"]
+    dx = dw_kernels.dw_spatial_dx(dy, w, stride, hw)
+    torch.cuda.synchronize()
+    assert dw_kernels.LAUNCHES["dw_spatial_dx"] == before + 1
+    assert dx.dtype == dtype
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(dx.float(), dw_kernels.dw_spatial_dx_plain(dy.float(), w.float(), stride, hw),
+                               rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dx_kernel_is_the_same_from_run_to_run(cuda, stride):
+    """At a flagship width (448 channels, a 32x32 dx of block 1 or 64x64 of
+    block 0), three reruns are bitwise equal: one pass, no atomics."""
+    rng = np.random.default_rng(18)
+    h = 32 * stride
+    oh = dw_kernels.spatial_out_size(h, 3, stride)
+    dy = rand(rng, 2, 8, oh, oh, 448).to(cuda, torch.bfloat16)
+    w = (rand(rng, 3, 3, 448) / 3).to(cuda, torch.bfloat16)
+    first = dw_kernels.dw_spatial_dx(dy, w, stride, (h, h))
+    assert all(torch.equal(first, dw_kernels.dw_spatial_dx(dy, w, stride, (h, h))) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_dx_kernel_refuses_other_kernel_sizes_on_the_card(cuda):
+    """k = 7 is not compiled: the wrapper raises before launching on the card,
+    while the CPU path still answers through the plain version."""
+    rng = np.random.default_rng(19)
+    dy, w = rand(rng, 1, 2, 6, 7, 8), rand(rng, 7, 7, 8)
+    before = dw_kernels.LAUNCHES["dw_spatial_dx"]
+    with pytest.raises(NotImplementedError, match="k=7"):
+        dw_kernels.dw_spatial_dx(dy.to(cuda), w.to(cuda), 1, (6, 7))
+    assert dw_kernels.LAUNCHES["dw_spatial_dx"] == before
+    assert dw_kernels.dw_spatial_dx(dy, w, 1, (6, 7)).shape == (1, 2, 6, 7, 8)
+
+
+@pytest.mark.cuda
 def test_weight_gradients_are_the_same_from_run_to_run(cuda):
     rng = np.random.default_rng(13)
     x = rand(rng, 4, 8, 32, 32, 64).to(cuda, torch.bfloat16)

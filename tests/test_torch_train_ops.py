@@ -295,6 +295,60 @@ def test_backward_wrappers_refuse_mismatched_shapes():
         dw_kernels.dw_temporal_dw(x, torch.zeros(1, 3, 6, 6, 8), 3)
 
 
+# (n, h, w, c, k, stride) of dx: the flagship step's 6 shapes (batch 32 x 16
+# frames), then ragged ones and tile edges.
+FLAGSHIP_DX = [(512, 64, 64, 448, 3, 2), (512, 32, 32, 448, 3, 1), (512, 32, 32, 896, 3, 2),
+               (512, 16, 16, 896, 3, 1), (512, 16, 16, 1792, 3, 2), (512, 8, 8, 1792, 3, 1)]
+RAGGED_DX = [(6, h, w, c, k, s) for (h, w), c in (((9, 11), 24), ((10, 12), 24), ((33, 17), 24), ((7, 5), 24),
+                                                  ((9, 11), 20), ((9, 11), 22), ((10, 12), 264))
+             for k in (3, 5) for s in (1, 2)] + [(1, 1, 1, 8, 3, 1), (2, 70, 3, 16, 5, 2), (1, 200, 1, 8, 3, 1)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", FLAGSHIP_DX + RAGGED_DX, ids=str)
+def test_dx_launch_geometry_fits_the_card_and_covers_dx_once(shape, itemsize):
+    """What ``dw_spatial_dx`` passes to its kernel, on a card of 132 SMs:
+    shared memory within the 232,448 bytes a block may use, a grid within
+    CUDA's limits, at least 2 blocks per SM at the flagship shapes, a ring
+    that holds every dy row a band reads while the next band's rows arrive,
+    and tiles that write every dx element exactly once."""
+    n, h, w, c, k, s = shape
+    geo = dw_kernels.dx_launch_geometry(n, h, w, c, k, s, itemsize, sms=132)
+    assert geo["smem_bytes"] <= 232_448
+    gx, gy, gz = geo["grid"]
+    assert 1 <= gx <= 2**31 - 1 and 1 <= gy <= 65535 and 1 <= gz <= 65535
+    if shape in FLAGSHIP_DX:
+        assert gx * gy * gz >= 2 * 132
+    band, lo, hi = geo["band"], geo["lo"], geo["hi"]
+    assert geo["ring"] >= band + lo + hi + (band if geo["bands_per_block"] > 1 else 0)
+    rows, cols = (dw_kernels.spatial_out_size(size, k, s) for size in (h, w))  # row and column steps
+    assert (rows, cols) == (-(-h // s), -(-w // s))
+    # The (row group, channel tile, column tile) of every block of one frame,
+    # as the kernel walks them: row steps [g * per_block, (g + 1) * per_block),
+    # each step s dx rows.
+    per_block = geo["bands_per_block"] * band
+    assert gx == n * geo["groups"] and (geo["groups"] - 1) * per_block < rows <= geo["groups"] * per_block
+    count = np.zeros((h, w, gy * 8), np.int32)
+    for group in range(geo["groups"]):
+        row_slice = slice(group * per_block * s, min((group + 1) * per_block, rows) * s)
+        for z in range(gz):
+            col_slice = slice(z * geo["col_tile"] * s, min((z + 1) * geo["col_tile"], cols) * s)
+            for y in range(gy):
+                count[row_slice, col_slice, y * 8:(y + 1) * 8] += 1
+    assert (count[:, :, : -(-c // (16 // itemsize))] == 1).all()  # vectors past C in the last tile are masked
+
+
+def test_dw_spatial_dx_plain_serves_any_odd_k_on_the_cpu():
+    """The kernel is compiled for k = 3 and 5; on the CPU the plain version
+    answers for any odd k (k = 7 here), as the JAX function does."""
+    rng = np.random.default_rng(35)
+    dy, w = torch.from_numpy(rand(rng, 1, 2, 6, 7, 8)), torch.from_numpy(rand(rng, 7, 7, 8))
+    dx = dw_kernels.dw_spatial_dx(dy, w, 1, (6, 7))
+    torch.testing.assert_close(dx, dw_kernels.dw_spatial_dx_plain(dy, w, 1, (6, 7)), rtol=0, atol=0)
+    jdx, _ = jax_spatial_vjp(pallas_dw.dw_spatial, rand(rng, 1, 2, 6, 7, 8), w.numpy(), dy.numpy(), 1)
+    np.testing.assert_allclose(dx.numpy(), jdx, atol=1e-4)
+
+
 def test_backward_wrappers_never_fall_back_off_the_cpu():
     """A tensor that is not on the CPU goes to the kernel or raises: here a
     meta tensor, which no kernel takes, raises instead of taking the plain path."""
