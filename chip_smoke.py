@@ -13,13 +13,18 @@ Phases, each of which passes or makes the script exit non-zero:
    plus ragged shapes. fp32 (TF32 off) must agree within atol 1e-5 on
    unit-scale inputs; bf16 is held to the plain version computed in fp32
    from the same bf16 inputs within one bf16 rounding (rtol 2**-8, atol
-   1e-5). Times are CUDA-event medians: the kernel, the plain version, and
-   as a yardstick two cuDNN lowerings of the same conv, which the port
-   never calls: ``F.conv3d(groups=C)`` and ``F.conv2d(groups=C)`` on the
+   1e-5). Times are CUDA-event medians (a call under 2 ms is timed over
+   back-to-back calls): the kernel, the plain version, and as a yardstick
+   two cuDNN lowerings of the same conv, which the port never calls: ``F.conv3d(groups=C)`` and ``F.conv2d(groups=C)`` on the
    channels-last (B*T, C, H, W) view (temporal: kernel (k, 1) on the
    (B, C, T, H*W) view); ``library_ms`` is the faster of the two per shape,
    and both are recorded. Beside them, the least time the card needs to
-   move the bytes or do the operations (``bound_ms``);
+   move the bytes or do the operations (``bound_ms``). The spatial cases add
+   edges the kernel's tiling can get wrong: H and W that are not multiples
+   of its tiles, frames wider or taller than one column tile, a 1x1 frame,
+   channel tails (C not a multiple of 8 in bf16 or of 4 in fp32), k = 5 at
+   both strides, C wider than one channel tile, and 8192 small frames, so
+   that each block walks several;
 4. slice: the flagship DwiseNeuro (``configs/true_batch_001.py``, seeded
    random weights, bf16) serves 3 requests through ``Predictor(chunk_size=32)``:
    300-frame trials of 36x64 video, mouse 0. Each answer must be a finite,
@@ -97,6 +102,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -202,21 +208,61 @@ def nvidia_smi_line() -> str:
     return out.splitlines()[0]
 
 
+def kernel_label(mangled: str) -> str:
+    """``dw_spatial_fwd_kernel<bf16,3,1,4>`` from the mangled name of a kernel
+    in a namespace (the type, then the integer template arguments)."""
+    scope = re.match(r"_ZN(\d+)", mangled)
+    if not scope:
+        return mangled
+    pos = scope.end() + int(scope.group(1))  # past the namespace's name
+    length = re.match(r"(\d+)", mangled[pos:])
+    if not length:
+        return mangled
+    start = pos + length.end()
+    name, rest = mangled[start : start + int(length.group(1))], mangled[start + int(length.group(1)) :]
+    if not rest.startswith("I"):
+        return name
+    dtype = "bf16" if rest.startswith("I13__nv_bfloat16") else "f32" if rest.startswith("If") else ""
+    args = [dtype, *re.findall(r"Li(\d+)E", rest.split("EEv")[0])]
+    return f"{name}<{','.join(a for a in args if a)}>"
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One entry per kernel of ``nvcc -Xptxas -v`` output: its name, registers and spills."""
+    out, name, spills = [], "", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = kernel_label(entry.group(1))
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            used = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name} {used.group(1) if used else '?'} registers, {spills}")
+    return out
+
+
 def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn`` in milliseconds."""
+    """Median CUDA-event time of one call of ``fn`` in milliseconds. A call
+    under 2 ms is timed over back-to-back calls, enough for about 2 ms a
+    sample, so that the host's time to launch each call hides behind the
+    card's work, as on the model's path, instead of adding to it while the
+    card waits."""
     import torch
+
+    def sample(calls: int) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls
 
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    calls = max(1, min(50, int(2.0 / max(sample(1), 0.04))))
+    return statistics.median(sample(calls) for _ in range(reps))
 
 
 def spatial_2d_view(t):
@@ -268,6 +314,20 @@ def check_kernels(peaks: tuple[float, float]) -> list[dict]:
             cases.append({"kernel": "dw_spatial_fwd", "hw": (9, 11), "c": 24, "stride": stride, "k": k,
                           "blocks": [], "batch": (2, 3)})
     cases.append({"kernel": "dw_temporal_fwd", "hw": (9, 11), "c": 24, "k": 3, "blocks": [], "batch": (2, 7)})
+    # The spatial forward's tile edges: sizes that are not multiples of its
+    # tiles, frames wider or taller than one column tile, a 1x1 frame, channel
+    # tails, C wider than one channel tile.
+    edges = [((33, 17), 24, (3, 5)), ((7, 5), 24, (3, 5)), ((2, 70), 24, (3,)), ((70, 3), 24, (3,)),
+             ((1, 1), 24, (3,)), ((9, 11), 20, (3,)), ((9, 11), 22, (3,)), ((10, 12), 264, (3,))]
+    for hw, c, ks in edges:
+        for k in ks:
+            for stride in (1, 2):
+                cases.append({"kernel": "dw_spatial_fwd", "hw": hw, "c": c, "stride": stride, "k": k, "blocks": [],
+                              "batch": (2, 3)})
+    # Enough small frames that each block walks several.
+    for hw, c, k, stride in (((7, 5), 24, 3, 1), ((4, 4), 22, 3, 2), ((1, 1), 8, 5, 1)):
+        cases.append({"kernel": "dw_spatial_fwd", "hw": hw, "c": c, "stride": stride, "k": k, "blocks": [],
+                      "batch": (64, 128)})
 
     rows = []
     for case in cases:
@@ -1191,8 +1251,9 @@ def main() -> int:
     built = _build.build_all()
     build_s = time.perf_counter() - start
     for name, info in built.items():
-        ptxas = [line.strip() for line in info["log"].splitlines() if "registers" in line or "spill" in line]
-        print(f"build: {name}.cu in {info['seconds']:.1f} s; " + " | ".join(ptxas), flush=True)
+        print(f"build: {name}.cu in {info['seconds']:.1f} s", flush=True)
+        for line in ptxas_summary(info["log"]):
+            print(f"build:   {line}", flush=True)
     print(f"build: {len(built)} sources compiled in {build_s:.1f} s", flush=True)
     record["build_seconds"] = build_s
 

@@ -7,7 +7,8 @@
 //
 // Layout is channels-last, as in the JAX package:
 //   spatial:  x (N = B*T, H, W, C), w (k, k, C)  -> y (N, OH, OW, C)
-//             OH = (H + 2*(k/2) - k) / stride + 1, torch "same" padding k/2
+//             y[n,oh,ow,c] = sum_{di,dj} w[di,dj,c] * x[n, s*oh+di-p, s*ow+dj-p, c],
+//             p = k/2, zero padding, OH = (H + 2p - k) / s + 1
 //   temporal: x (B, T, L = H*W*C), w (k, C)      -> y (B, T, L), padding k/2, odd k
 //
 // What bounds them: bytes. Each reads x once and writes y once; the work is
@@ -15,67 +16,256 @@
 // the card's ridge point of ~20 fp32 operations per byte. At the 3.35 TB/s of
 // an H100 SXM data sheet (700 W limit), block 0's stride-2 spatial conv of one
 // 32-window chunk moves 2.35 GB in bf16 and cannot take less than ~0.70 ms.
+// To come near that, the spatial kernel must not spend more instructions or
+// shared-memory bandwidth per output than the bytes allow: at stride 1 a
+// naive thread issues k*k loads, k*k conversions of 8 bf16 and k*k weight
+// conversions for every 8 outputs, which is more than the card can issue in
+// the time the bytes take.
 //
-// The design is the simple one. Padding is a bounds predicate: the padded
-// input is not materialised, and neither are the TPU kernel's parity planes,
-// because a strided read is just an address here. Neighbouring threads own
-// neighbouring channels, so every warp reads and writes contiguous bytes.
-// Accumulation is fp32 in registers, rounded once to the output type.
-// Offsets that can exceed 2^31 (block 0 holds 9.4e8 elements at chunk 32) are
-// 64-bit. Left for later: shared-memory halo tiles, so that each x element is
-// fetched from L2 once instead of k*k times, and 16-byte loads of 8 bf16
-// channels per thread.
+// Design of dw_spatial_fwd_kernel<T, K, S, W>:
+//  - k, the stride and W (output columns per thread) are template parameters
+//    (k in {3, 5}; stride 1 with W in {2, 4}, stride 2 with W = 2), so every
+//    tap loop unrolls and no division or modulo is left in it.
+//  - A thread owns one 16-byte vector of channels (8 bf16 or 4 fp32);
+//    neighbouring threads own neighbouring vectors, so each quarter-warp
+//    reads and writes 128 contiguous bytes of one pixel.
+//  - A block owns one frame n (or a group of its output rows), a tile of 8
+//    channel vectors and a tile of col_tile output columns. It walks its rows
+//    in bands of `band` output rows and stages the x rows a band reads,
+//    S*(band-1)+K of them with the halo, in a ring in shared memory with
+//    cp.async; the next band adds S*band rows, copied while this band
+//    computes (double-buffered). Out-of-frame rows and columns are copied as
+//    zeros (a source size of 0), which is the zero padding, so the tap loops
+//    carry no bounds checks. Each x element leaves L2 about once per block.
+//  - Where one band holds a whole frame (the 8x8 outputs of the deep
+//    blocks), a block's life would be one copy and one short band of
+//    arithmetic, with nothing to hide the copy behind. There a block walks
+//    `frames` frames instead, one band each, the next frame's rows copied
+//    while this frame computes, and loads its weights once for all of them.
+//  - The block's weights are converted to fp32 once, into shared memory, not
+//    held in registers (dw_spatial_dx's k*k weight vectors, unpacked, take 72
+//    registers and leave room for 2 blocks an SM).
+//  - A thread computes W adjacent outputs of one row from a register window:
+//    for each tap row it loads the row's K weight vectors and then the
+//    S*(W-1)+K x vectors its outputs read, each converted once and used by
+//    up to ceil(K/S) outputs, so per output it loads and converts
+//    (S*(W-1)+K)/W x vectors a row instead of K. W and the tiles keep at least
+//    3 blocks of 256 threads on an SM (k = 3) in registers and shared memory.
+//  - The tile arithmetic (band, column tile, W, frames or bands per block,
+//    shared-memory bytes) comes from the wrapper (ops/dw_kernels.py
+//    fwd_launch_geometry); the launcher derives the rest and refuses
+//    shared-memory bytes that do not match its own count.
+//  - 32-bit offsets inside a frame, one 64-bit frame base; fp32 accumulation
+//    in the plain version's tap order, rounded once to x's type; one pass, so
+//    reruns are bitwise equal. Where C is not a multiple of the vector width
+//    (or a pointer is not 16-byte aligned) the same kernel stages and stores
+//    element by element.
 //
 // Every entry point launches on the caller's stream, does not synchronise,
-// allocates nothing and returns cudaGetLastError().
+// allocates nothing and returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a kernel size, stride or tiling the spatial kernel is not compiled for.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dw_vec.cuh"
+
 namespace {
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 constexpr int kThreads = 256;
 
-// One block per output row (n, oh); its threads stride over the OW*C
-// elements of the row, channel fastest.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dw_spatial_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                      int h, int wd, int c, int oh, int ow, int k, int stride) {
-  const int64_t row = blockIdx.x;
-  const int out_h = static_cast<int>(row % oh);
-  const int64_t n = row / oh;
-  const int pad = k / 2;
-  const int row_len = ow * c;
-  const T* xn = x + n * static_cast<int64_t>(h) * wd * c;
-  T* yrow = y + row * static_cast<int64_t>(row_len);
-  const int ih0 = out_h * stride - pad;
-  for (int j = threadIdx.x; j < row_len; j += blockDim.x) {
-    const int ch = j % c;
-    const int iw0 = (j / c) * stride - pad;
-    float acc = 0.0f;
-    for (int di = 0; di < k; ++di) {
-      const int ih = ih0 + di;
-      if (ih < 0 || ih >= h) continue;
-      const T* xrow = xn + static_cast<int64_t>(ih) * wd * c + ch;
-      const T* wrow = w + di * k * c + ch;
-      for (int dj = 0; dj < k; ++dj) {
-        const int iw = iw0 + dj;
-        if (iw < 0 || iw >= wd) continue;
-        acc = fmaf(to_float(xrow[static_cast<int64_t>(iw) * c]), to_float(wrow[dj * c]), acc);
+// ---------------------------------------------------------------- dw_spatial_fwd
+
+constexpr int kFwdThreads = 256;
+constexpr int kFwdTileVecs = 8;                        // channel vectors per block
+constexpr int kFwdLanes = kFwdThreads / kFwdTileVecs;  // position lanes per block
+
+// The launch geometry of dw_spatial_fwd_kernel (ops/dw_kernels.py fwd_launch_geometry).
+struct FwdGeometry {
+  int64_t frame_in, frame_out;  // elements of an x and a y frame
+  int n, h, wd, c, oh, ow;
+  int band;             // output rows per band
+  int col_tile;         // output columns per block, a multiple of W
+  int frames;           // frames walked by one block, one band each (1: the block stays in one frame)
+  int bands_per_block;  // bands walked by one block in its frame (frames == 1)
+  int groups;           // blocks per frame along the rows
+  int band_rows;        // virtual ring rows between bands: S*(band-1)+K when the block walks frames, else 0
+  int units_per_row;    // col_tile / W
+  int ring;             // x rows held in the ring
+  int tile_cols;        // x columns per ring row: S*(col_tile-1)+K
+  int vec;              // 1: 16-byte copies and stores; 0: element by element
+};
+
+// x rows [r_begin, r_end] of frame xn, columns xcol0 .. xcol0 + tile_cols - 1,
+// the channel vector from channel ch, into their ring slots: row r in slot
+// (base + r + P) % ring; zeros outside x. The loops stay rolled: unrolled,
+// their addresses take registers that the tap loops need.
+template <typename T, int P>
+__device__ __forceinline__ void stage_x_rows(uint4* __restrict__ ring, const T* __restrict__ xn,
+                                             const FwdGeometry& g, int r_begin, int r_end, int base, int xcol0,
+                                             int ch) {
+  const int v = threadIdx.x % kFwdTileVecs;
+  const int lane = threadIdx.x / kFwdTileVecs;
+#pragma unroll 1
+  for (int r = r_begin; r <= r_end; ++r) {
+    const bool row_inside = r >= 0 && r < g.h && ch < g.c;
+    uint4* dst_row = ring + ((base + r + P) % g.ring) * g.tile_cols * kFwdTileVecs + v;
+    const T* src_row = xn + (row_inside ? r * g.wd * g.c + ch : 0);
+#pragma unroll 1
+    for (int cc = lane; cc < g.tile_cols; cc += kFwdLanes) {
+      const int col = xcol0 + cc;
+      const bool inside = row_inside && col >= 0 && col < g.wd;
+      const T* src = inside ? src_row + col * g.c : xn;
+      uint4* dst = dst_row + cc * kFwdTileVecs;
+      if (g.vec) {
+        cp_async16(dst, src, inside ? 16 : 0);
+      } else {
+        *dst = inside ? Vec16<T>::load(src, g.c - ch) : make_uint4(0u, 0u, 0u, 0u);
       }
     }
-    yrow[j] = from_float<T>(acc);
+  }
+}
+
+// Block (frames and row group, channel tile, column tile); thread (channel
+// vector v = tid % 8, position lane tid / 8). The block walks a sequence of
+// bands: the bands of its row group in one frame, or one band (the whole
+// frame) in each of its `frames` frames. Band i's x rows sit at virtual rows
+// i * band_rows + r + P when the block walks frames (0 + r + P otherwise, so
+// neighbouring bands of a frame share their halo rows), in slot virtual % ring.
+// A unit is W adjacent outputs of one row; a band has band * col_tile / W
+// units, taken by the lanes in turn. Shared memory: the ring
+// [g.ring][g.tile_cols][8] of 16-byte vectors, then the weights in fp32,
+// [K*K][kVec/4][8] float4s. The frame sizes come from the geometry (constant
+// memory), so that few block-level values hold registers through the tap
+// loops, where ptxas would spill them. Registers are capped for 3 blocks an
+// SM at k = 3 (80 a thread), for 4 with 2 outputs a thread at stride 1 (the
+// small frames, whose blocks' copies hide behind each other's arithmetic),
+// for 2 at k = 5.
+template <typename T, int K, int S, int W>
+__global__ void __launch_bounds__(kFwdThreads, K == 3 ? (S == 1 && W == 2 ? 4 : 3) : 2)
+dw_spatial_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, const FwdGeometry g) {
+  using V = Vec16<T>;
+  constexpr int kVec = V::kN;
+  constexpr int kP = K / 2;
+  constexpr int kQuads = kVec / 4;         // float4s per channel vector
+  constexpr int kWindow = S * (W - 1) + K;  // x columns a unit reads per row
+  extern __shared__ uint4 smem[];
+  uint4* ring = smem;
+  float4* wsm = reinterpret_cast<float4*>(smem + g.ring * g.tile_cols * kFwdTileVecs);
+
+  const int v = threadIdx.x % kFwdTileVecs;
+  const int lane = threadIdx.x / kFwdTileVecs;
+  const int group = blockIdx.x % g.groups;
+  const int n0 = blockIdx.x / g.groups * g.frames;  // the block's first frame
+  const int cv0 = blockIdx.y * kFwdTileVecs;
+  const int ch = (cv0 + v) * kVec;
+  const int col0 = blockIdx.z * g.col_tile;
+  const bool walks = g.frames > 1;
+  const int row0 = group * g.bands_per_block * g.band;
+  const int row_end = min(row0 + g.bands_per_block * g.band, g.oh);
+  // Whether the block has a band i: a frame left to walk, or rows left in its group.
+  auto has_band = [&](int i) { return walks ? i < g.frames && n0 + i < g.n : row0 + i * g.band < row_end; };
+
+  // Band i's x rows that the ring does not hold yet: all of them for the first
+  // band of a frame, the S*band new rows below the last band's otherwise.
+  auto stage = [&](int i) {
+    if (!has_band(i)) return;
+    const int s = walks ? 0 : row0 + i * g.band;
+    const int r_begin = (walks || i == 0) ? s * S - kP : (s - 1) * S + K - kP;
+    stage_x_rows<T, kP>(ring, x + static_cast<int64_t>(n0 + (walks ? i : 0)) * g.frame_in, g, r_begin,
+                        (s + g.band - 1) * S + K - 1 - kP, i * g.band_rows, col0 * S - kP, ch);
+  };
+  stage(0);
+  cp_async_commit();
+  // The weights, while the first band's rows are in flight.
+  for (int e = threadIdx.x; e < K * K * kFwdTileVecs; e += kFwdThreads) {
+    const int t = e / kFwdTileVecs;
+    const int wv = e % kFwdTileVecs;
+    const int wch = (cv0 + wv) * kVec;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (wch < g.c) {
+      raw = g.vec ? *reinterpret_cast<const uint4*>(w + t * g.c + wch) : V::load(w + t * g.c + wch, g.c - wch);
+    }
+    float f[kVec];
+    V::unpack(f, raw);
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      wsm[(t * kQuads + q) * kFwdTileVecs + wv] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
+    }
+  }
+
+  for (int i = 0; has_band(i); ++i) {
+    // One group per band, empty past the last, so that waiting for all but
+    // the newest group always means band i has landed.
+    stage(i + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+
+    const int s = walks ? 0 : row0 + i * g.band;
+    const int frame = n0 + (walks ? i : 0);
+    const int units = ch < g.c ? min(g.band, (walks ? g.oh : row_end) - s) * g.units_per_row : 0;
+    for (int u = lane; u < units; u += kFwdLanes) {
+      const int rs = u / g.units_per_row;
+      const int cu = u - rs * g.units_per_row;
+      const int a = s + rs;          // output row
+      const int b0 = col0 + cu * W;  // first output column of the unit
+      if (b0 >= g.ow) continue;
+      float acc[W][kVec];
+#pragma unroll
+      for (int o = 0; o < W; ++o) {
+#pragma unroll
+        for (int i2 = 0; i2 < kVec; ++i2) acc[o][i2] = 0.0f;
+      }
+      const int slot0 = (i * g.band_rows + a * S) % g.ring;  // x row a*S - P + di is in slot slot0 + di
+      // One tap row at a time: unrolled, the compiler hoists every row's
+      // shared-memory loads and spills under the register cap.
+#pragma unroll 1
+      for (int di = 0; di < K; ++di) {
+        int slot = slot0 + di;
+        slot -= slot >= g.ring ? g.ring : 0;
+        const uint4* row = ring + (slot * g.tile_cols + cu * W * S) * kFwdTileVecs + v;
+        float wf[K][kVec];
+#pragma unroll
+        for (int dj = 0; dj < K; ++dj) {
+#pragma unroll
+          for (int q = 0; q < kQuads; ++q) {
+            const float4 f = wsm[((di * K + dj) * kQuads + q) * kFwdTileVecs + v];
+            wf[dj][4 * q] = f.x;
+            wf[dj][4 * q + 1] = f.y;
+            wf[dj][4 * q + 2] = f.z;
+            wf[dj][4 * q + 3] = f.w;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kWindow; ++j) {
+          float xf[kVec];
+          V::unpack(xf, row[j * kFwdTileVecs]);
+#pragma unroll
+          for (int o = 0; o < W; ++o) {
+            const int dj = j - S * o;  // decided at compile time
+            if (dj < 0 || dj >= K) continue;
+#pragma unroll
+            for (int i2 = 0; i2 < kVec; ++i2) acc[o][i2] = fmaf(xf[i2], wf[dj][i2], acc[o][i2]);
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < W; ++o) {
+        if (b0 + o >= g.ow) break;
+        T* out = y + static_cast<int64_t>(frame) * g.frame_out + (a * g.ow + b0 + o) * g.c + ch;
+        if (g.vec) {
+          *reinterpret_cast<uint4*>(out) = V::pack(acc[o]);
+        } else {
+#pragma unroll
+          for (int i2 = 0; i2 < kVec; ++i2) {
+            if (ch + i2 < g.c) out[i2] = from_float<T>(acc[o][i2]);
+          }
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -105,21 +295,80 @@ dw_temporal_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __re
   }
 }
 
-template <typename T>
-int launch_spatial(const void* x, const void* w, void* y, int64_t n, int64_t h, int64_t wd,
-                   int64_t c, int64_t k, int64_t stride, void* stream) {
-  const int64_t pad = k / 2;
-  const int64_t oh = (h + 2 * pad - k) / stride + 1;
-  const int64_t ow = (wd + 2 * pad - k) / stride + 1;
-  const int64_t rows = n * oh;
-  if (rows > 0 && ow * c > 0) {
-    dw_spatial_fwd_kernel<T><<<static_cast<unsigned int>(rows), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-        static_cast<int>(h), static_cast<int>(wd), static_cast<int>(c), static_cast<int>(oh),
-        static_cast<int>(ow), static_cast<int>(k), static_cast<int>(stride));
+template <typename T, int K, int S, int W>
+int launch_spatial_fwd_kernel(const T* x, const T* w, T* y, const FwdGeometry& g, dim3 grid, int smem,
+                              cudaStream_t stream) {
+  auto* kernel = dw_spatial_fwd_kernel<T, K, S, W>;
+  if (smem > 48 * 1024) {
+    const cudaError_t status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (status != cudaSuccess) return static_cast<int>(status);
   }
+  kernel<<<grid, kFwdThreads, smem, stream>>>(x, w, y, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int K>
+int dispatch_spatial_fwd(const T* x, const T* w, T* y, const FwdGeometry& g, int stride, int cols, dim3 grid,
+                         int smem, cudaStream_t stream) {
+  if (stride == 2) return launch_spatial_fwd_kernel<T, K, 2, 2>(x, w, y, g, grid, smem, stream);
+  return cols == 4 ? launch_spatial_fwd_kernel<T, K, 1, 4>(x, w, y, g, grid, smem, stream)
+                   : launch_spatial_fwd_kernel<T, K, 1, 2>(x, w, y, g, grid, smem, stream);
+}
+
+// band, col_tile, cols (W), frames, bands_per_block and smem_bytes come from
+// the wrapper; the rest of the geometry follows from them here.
+template <typename T>
+int launch_spatial(const void* x, const void* w, void* y, int64_t n, int64_t h, int64_t wd, int64_t c, int64_t k,
+                   int64_t stride, int64_t band, int64_t col_tile, int64_t cols, int64_t frames,
+                   int64_t bands_per_block, int64_t smem_bytes, void* stream) {
+  constexpr int kVec = Vec16<T>::kN;
+  const bool cols_ok = stride == 1 ? (cols == 2 || cols == 4) : (stride == 2 && cols == 2);
+  if ((k != 3 && k != 5) || !cols_ok || band < 1 || col_tile < 1 || col_tile % cols != 0 || frames < 1 ||
+      bands_per_block < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t pad = k / 2;
+  FwdGeometry g;
+  g.frame_in = h * wd * c;
+  g.frame_out = ((h + 2 * pad - k) / stride + 1) * ((wd + 2 * pad - k) / stride + 1) * c;
+  g.n = static_cast<int>(n);
+  g.h = static_cast<int>(h);
+  g.wd = static_cast<int>(wd);
+  g.c = static_cast<int>(c);
+  g.oh = static_cast<int>((h + 2 * pad - k) / stride + 1);
+  g.ow = static_cast<int>((wd + 2 * pad - k) / stride + 1);
+  if (frames > 1 && (band < g.oh || bands_per_block != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  g.band = static_cast<int>(band);
+  g.col_tile = static_cast<int>(col_tile);
+  g.frames = static_cast<int>(frames);
+  g.bands_per_block = static_cast<int>(bands_per_block);
+  const int64_t bands = (g.oh + band - 1) / band;
+  g.groups = static_cast<int>((bands + bands_per_block - 1) / bands_per_block);
+  const int64_t frame_rows = stride * (band - 1) + k;  // the x rows of one band
+  g.band_rows = static_cast<int>(frames > 1 ? frame_rows : 0);
+  g.units_per_row = static_cast<int>(col_tile / cols);
+  // The ring holds a band and, if the block walks more than one, the next.
+  const int64_t held = (frames > 1 ? frames : bands_per_block) > 1 ? 2 : 1;
+  g.ring = static_cast<int>(frames > 1 ? held * frame_rows : stride * (held * band - 1) + k);
+  g.tile_cols = static_cast<int>(stride * (col_tile - 1) + k);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  g.vec = c % kVec == 0 && aligned(x) && aligned(w) && aligned(y);
+  if (smem_bytes != static_cast<int64_t>(g.ring) * g.tile_cols * kFwdTileVecs * 16 + k * k * kFwdTileVecs * kVec * 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0 || h == 0 || wd == 0 || c == 0) return static_cast<int>(cudaGetLastError());
+  const int64_t cvecs = (c + kVec - 1) / kVec;
+  const dim3 grid(static_cast<unsigned int>((n + frames - 1) / frames * g.groups),
+                  static_cast<unsigned int>((cvecs + kFwdTileVecs - 1) / kFwdTileVecs),
+                  static_cast<unsigned int>((g.ow + col_tile - 1) / col_tile));
+  const auto* xp = static_cast<const T*>(x);
+  const auto* wp = static_cast<const T*>(w);
+  auto* yp = static_cast<T*>(y);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int smem = static_cast<int>(smem_bytes);
+  const int st = static_cast<int>(stride), cl = static_cast<int>(cols);
+  return k == 3 ? dispatch_spatial_fwd<T, 3>(xp, wp, yp, g, st, cl, grid, smem, s)
+                : dispatch_spatial_fwd<T, 5>(xp, wp, yp, g, st, cl, grid, smem, s);
 }
 
 template <typename T>
@@ -139,14 +388,18 @@ int launch_temporal(const void* x, const void* w, void* y, int64_t batch, int64_
 
 extern "C" {
 
-int dw_spatial_fwd_f32(const void* x, const void* w, void* y, int64_t n, int64_t h, int64_t wd,
-                       int64_t c, int64_t k, int64_t stride, void* stream) {
-  return launch_spatial<float>(x, w, y, n, h, wd, c, k, stride, stream);
+int dw_spatial_fwd_f32(const void* x, const void* w, void* y, int64_t n, int64_t h, int64_t wd, int64_t c,
+                       int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t cols, int64_t frames,
+                       int64_t bands_per_block, int64_t smem_bytes, void* stream) {
+  return launch_spatial<float>(x, w, y, n, h, wd, c, k, stride, band, col_tile, cols, frames, bands_per_block,
+                               smem_bytes, stream);
 }
 
-int dw_spatial_fwd_bf16(const void* x, const void* w, void* y, int64_t n, int64_t h, int64_t wd,
-                        int64_t c, int64_t k, int64_t stride, void* stream) {
-  return launch_spatial<__nv_bfloat16>(x, w, y, n, h, wd, c, k, stride, stream);
+int dw_spatial_fwd_bf16(const void* x, const void* w, void* y, int64_t n, int64_t h, int64_t wd, int64_t c,
+                        int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t cols, int64_t frames,
+                        int64_t bands_per_block, int64_t smem_bytes, void* stream) {
+  return launch_spatial<__nv_bfloat16>(x, w, y, n, h, wd, c, k, stride, band, col_tile, cols, frames,
+                                       bands_per_block, smem_bytes, stream);
 }
 
 int dw_temporal_fwd_f32(const void* x, const void* w, void* y, int64_t batch, int64_t t_len,

@@ -1,0 +1,106 @@
+// Device helpers shared by dw_conv.cu and dw_conv_bwd.cu: scalar conversions,
+// 16-byte channel vectors, and asynchronous copies from global to shared
+// memory (cp.async). Each source includes this header into its own library,
+// so everything here is internal to the including file.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// One 16-byte vector of channels: 8 bf16 or 4 fp32, as 4 32-bit words.
+template <typename T> struct Vec16;
+
+template <> struct Vec16<float> {
+  static constexpr int kN = 4;
+  // The first `valid` elements at p, zeros after them.
+  static __device__ __forceinline__ uint4 load(const float* p, int valid) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) u[i] = i < valid ? __float_as_uint(p[i]) : 0u;
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+  static __device__ __forceinline__ void unpack(float (&f)[4], uint4 a) {
+    f[0] = __uint_as_float(a.x);
+    f[1] = __uint_as_float(a.y);
+    f[2] = __uint_as_float(a.z);
+    f[3] = __uint_as_float(a.w);
+  }
+  static __device__ __forceinline__ void fma(float (&acc)[4], uint4 a, uint4 b) {
+    acc[0] = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc[0]);
+    acc[1] = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc[1]);
+    acc[2] = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc[2]);
+    acc[3] = fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc[3]);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&acc)[4]) {
+    return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]), __float_as_uint(acc[2]),
+                      __float_as_uint(acc[3]));
+  }
+};
+
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ uint4 load(const __nv_bfloat16* p, int valid) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t lo = 2 * i < valid ? __bfloat16_as_ushort(p[2 * i]) : 0u;
+      const uint32_t hi = 2 * i + 1 < valid ? __bfloat16_as_ushort(p[2 * i + 1]) : 0u;
+      u[i] = lo | (hi << 16);
+    }
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+  // Element 2i is the low half of word i, 2i+1 the high half; a bf16 is the
+  // high half of the fp32 of the same value.
+  static __device__ __forceinline__ void unpack2(float& e0, float& e1, uint32_t a) {
+    e0 = __uint_as_float(a << 16);
+    e1 = __uint_as_float(a & 0xffff0000u);
+  }
+  static __device__ __forceinline__ void unpack(float (&f)[8], uint4 a) {
+    unpack2(f[0], f[1], a.x);
+    unpack2(f[2], f[3], a.y);
+    unpack2(f[4], f[5], a.z);
+    unpack2(f[6], f[7], a.w);
+  }
+  static __device__ __forceinline__ void fma2(float& e0, float& e1, uint32_t a, uint32_t b) {
+    e0 = fmaf(__uint_as_float(a << 16), __uint_as_float(b << 16), e0);
+    e1 = fmaf(__uint_as_float(a & 0xffff0000u), __uint_as_float(b & 0xffff0000u), e1);
+  }
+  static __device__ __forceinline__ void fma(float (&acc)[8], uint4 a, uint4 b) {
+    fma2(acc[0], acc[1], a.x, b.x);
+    fma2(acc[2], acc[3], a.y, b.y);
+    fma2(acc[4], acc[5], a.z, b.z);
+    fma2(acc[6], acc[7], a.w, b.w);
+  }
+  static __device__ __forceinline__ uint32_t pack2(float e0, float e1) {
+    return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(e0))) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(e1))) << 16);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&acc)[8]) {
+    return make_uint4(pack2(acc[0], acc[1]), pack2(acc[2], acc[3]), pack2(acc[4], acc[5]), pack2(acc[6], acc[7]));
+  }
+};
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+}  // namespace

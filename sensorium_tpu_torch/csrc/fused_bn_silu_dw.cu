@@ -25,17 +25,20 @@
 // activation's write and re-read (and the cast), two of the chain's four
 // passes over the tensor.
 //
-// The design is dw_conv.cu's spatial kernel with the prologue at the load:
-// one block per output row (n, oh), threads striding over its OW*C elements,
-// channel fastest, so every warp reads and writes contiguous bytes. A
-// strided read is an address, so there are no parity planes; padding is a
-// bounds predicate, and a tap outside the frame adds nothing, which is the
+// The design is the simple one, with the prologue at the load: one block per
+// output row (n, oh), threads striding over its OW*C elements, channel
+// fastest, so every warp reads and writes contiguous bytes. A strided read
+// is an address, so there are no parity planes; padding is a bounds
+// predicate, and a tap outside the frame adds nothing, which is the
 // zero-after-prologue rule (no masking pass, no padded copy). scale and
 // shift are read once per element, outside the tap loop. The prologue is
 // recomputed for every tap that reads an element (k*k times at stride 1)
-// rather than staged once per element in shared memory: left for the PR
-// that makes it fast, with the halo tiles dw_conv.cu also lacks. Offsets
-// that can exceed 2^31 are 64-bit.
+// rather than applied once per element as it is staged. Left for the PR that
+// makes it fast: dw_conv.cu's dw_spatial_fwd_kernel already stages the x
+// rows of each band with their halo in a shared-memory ring and computes
+// from 16-byte channel vectors; applying the prologue once per staged
+// element (with out-of-frame elements kept at zero) would give this kernel
+// the same design. Offsets that can exceed 2^31 are 64-bit.
 //
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing and returns cudaGetLastError().

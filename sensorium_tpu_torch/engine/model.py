@@ -16,6 +16,7 @@ and preemption.
 from __future__ import annotations
 
 import copy
+import os
 from typing import Callable, Sequence
 
 import numpy as np
@@ -136,15 +137,22 @@ class MouseModel:
         return self._train_step
 
     def _stage_inputs(self, inputs) -> torch.Tensor:
-        """The batch inputs on the device. A bf16 model (with no teacher, or a
-        bf16 one) gets them cast to bf16 on the host before the copy: its
-        first op is that cast, round-to-nearest-even either way, so only the
-        copy halves. A tensor already on the device passes as it is."""
+        """The batch inputs on the device, cast to bf16 on the host before the
+        copy when the model's ``dtype`` is bf16, the teacher is None or its
+        ``dtype`` is bf16 too (a module without ``dtype`` counts as not bf16),
+        and ``SENSORIUM_STAGE_BF16`` is not ``"0"``. The model's first op is
+        that cast, round-to-nearest-even either way, so only the copy halves;
+        a teacher that is not bf16 would see rounded inputs, so it gets fp32.
+        A tensor already on the device passes as it is."""
         if isinstance(inputs, torch.Tensor) and inputs.device == self.device:
             return inputs
         inputs = torch.as_tensor(np.asarray(inputs, np.float32))
-        teacher_dtype = getattr(self.teacher_module, "dtype", torch.bfloat16)
-        if getattr(self.nn_module, "dtype", None) == torch.bfloat16 and teacher_dtype == torch.bfloat16:
+
+        def is_bf16(module) -> bool:
+            return getattr(module, "dtype", None) == torch.bfloat16
+
+        if (is_bf16(self.nn_module) and (self.teacher_module is None or is_bf16(self.teacher_module))
+                and os.environ.get("SENSORIUM_STAGE_BF16", "1") != "0"):
             inputs = inputs.to(torch.bfloat16)
         return inputs.to(self.device)
 

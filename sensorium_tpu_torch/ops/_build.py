@@ -2,9 +2,10 @@
 
 Each source is compiled on first use with ``nvcc`` into a shared library with
 a plain C interface, which is loaded with ``ctypes``. The library's name
-carries a hash of the source and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. The build directory is ``build/`` at the
-root of the checkout, which ``.gitignore`` lists.
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. The build directory is ``build/`` at the root of the
+checkout, which ``.gitignore`` lists.
 
 This takes seconds per source, where ``torch.utils.cpp_extension.load`` takes
 minutes for a file that includes PyTorch's headers. Nothing here falls back:
@@ -47,9 +48,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, every
+    shared header (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((SOURCE_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, dict]:

@@ -50,16 +50,15 @@ _INT32_MAX = 2**31 - 1
 _ENTRIES: dict[str, ctypes._CFuncPtr] = {}
 # Entry point -> (library, number of pointer arguments, number of int64 sizes).
 _SIGNATURES = {
-    "dw_spatial_fwd": ("dw_conv", 3, 6),
+    "dw_spatial_fwd": ("dw_conv", 3, 12),
     "dw_temporal_fwd": ("dw_conv", 3, 5),
     "dw_spatial_dx": ("dw_conv_bwd", 3, 10),
     "dw_spatial_dw": ("dw_conv_bwd", 4, 7),
     "dw_temporal_dw": ("dw_conv_bwd", 4, 6),
     "fused_bn_silu_dw_spatial": ("fused_bn_silu_dw", 5, 6),
 }
-# Kernel sizes the weight-gradient and dx kernels are compiled for.
-_GRAD_W_KS = (3, 5)
-_DX_KS = (3, 5)
+# Kernel sizes the spatial forward, dx and weight-gradient kernels are compiled for.
+_COMPILED_KS = (3, 5)
 # Channels per reduction block and position lanes per block (dw_conv_bwd.cu).
 _LANES, _ROWS = 32, 8
 # dw_spatial_dx_kernel (dw_conv_bwd.cu, 256 threads a block): 16-byte channel
@@ -69,6 +68,17 @@ _LANES, _ROWS = 32, 8
 _DX_TILE_VECS = 8
 _DX_POSITIONS, _DX_MAX_COL_TILE = 128, 32
 _DX_BLOCKS_PER_SM = 4
+# dw_spatial_fwd_kernel (dw_conv.cu, 256 threads a block): 16-byte channel
+# vectors per block and position lanes; output columns per block at most; the
+# blocks per SM its tiles and registers are sized for (k = 3), and the shared
+# memory that leaves a block: an SM's 233,472 bytes, less 1 KB reserved per block.
+_FWD_TILE_VECS, _FWD_LANES = 8, 32
+_FWD_MAX_COL_TILE = 32
+_FWD_BLOCKS_PER_SM = 3
+_FWD_SMEM_BUDGET = 233_472 // _FWD_BLOCKS_PER_SM - 1024
+# Where a band holds a whole frame, a block walks 2 frames if that leaves at
+# least this many blocks per SM.
+_FWD_WALK_MIN_BLOCKS = 24
 # Shared memory a block can use on Hopper, and CUDA's grid limits.
 _MAX_SMEM_BYTES = 232_448
 _MAX_GRID = (_INT32_MAX, 65535, 65535)
@@ -118,6 +128,68 @@ def dx_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, ite
         "grid": (n * groups, channel_tiles, col_tiles),
         "smem_bytes": ring * (col_tile + lo + hi) * _DX_TILE_VECS * 16,
     }
+
+
+def fwd_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, itemsize: int, sms: int) -> dict:
+    """The tiling of ``dw_spatial_fwd_kernel`` for ``n`` frames of x (h, wd, c).
+
+    A thread computes ``cols`` adjacent outputs of one row (a unit): 2 at
+    stride 2, 4 at stride 1 unless a frame then has fewer units than a block
+    has lanes. A block owns 8 channel vectors of 16 bytes and ``col_tile``
+    output columns, and walks a sequence of bands of ``band`` output rows,
+    about one unit per lane a band: the bands of a group of one frame's rows,
+    or, where a band holds a whole frame and the frames give enough blocks,
+    one band in each of ``frames`` (2) frames. It stages the x rows of a band
+    (``stride * (band - 1) + k`` of them; the next band of the same frame
+    adds ``stride * band``) while the last band computes, in a ring of
+    ``ring`` rows of ``stride * (col_tile - 1) + k`` columns in shared
+    memory, beside the block's weights in fp32. The column tile, then the
+    band, shrink until 3 blocks fit an SM's shared memory. Row groups split
+    a frame only where the frames alone give fewer than 3 blocks per SM. The
+    kernel takes ``band``, ``col_tile``, ``cols``, ``frames``,
+    ``bands_per_block`` and ``smem_bytes`` and derives the rest.
+    """
+    vec = 16 // itemsize
+    rows, out_cols = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
+    cols = 4 if stride == 1 and rows * _cdiv(out_cols, 4) >= _FWD_LANES else 2
+    weight_bytes = k * k * _FWD_TILE_VECS * vec * 4
+    channel_tiles = _cdiv(_cdiv(c, vec), _FWD_TILE_VECS)
+
+    def tiling(col_tile: int, band: int) -> dict:
+        bands, col_tiles = _cdiv(rows, band), _cdiv(out_cols, col_tile)
+        walk = bands == 1 and _cdiv(n, 2) * channel_tiles * col_tiles >= _FWD_WALK_MIN_BLOCKS * sms
+        frames = 2 if walk else 1
+        groups = min(bands, max(1, _cdiv(_FWD_BLOCKS_PER_SM * sms, n * channel_tiles * col_tiles)))
+        bands_per_block = _cdiv(bands, groups)
+        groups = _cdiv(bands, bands_per_block)
+        frame_rows = stride * (band - 1) + k
+        held = 2 if max(frames, bands_per_block) > 1 else 1  # a band, and the next one if the block walks on
+        ring = held * frame_rows if frames > 1 else stride * (held * band - 1) + k
+        tile_cols = stride * (col_tile - 1) + k
+        return {
+            "cols": cols,
+            "band": band,
+            "col_tile": col_tile,
+            "frames": frames,
+            "bands_per_block": bands_per_block,
+            "groups": groups,
+            "ring": ring,
+            "tile_cols": tile_cols,
+            "grid": (_cdiv(n, frames) * groups, channel_tiles, col_tiles),
+            "smem_bytes": ring * tile_cols * _FWD_TILE_VECS * 16 + weight_bytes,
+        }
+
+    col_tile = min(_cdiv(out_cols, cols) * cols, _FWD_MAX_COL_TILE)
+    band = max(1, min(rows, _cdiv(_FWD_LANES, col_tile // cols)))
+    geo = tiling(col_tile, band)
+    while geo["smem_bytes"] > _FWD_SMEM_BUDGET and (col_tile > cols or band > 1):
+        if col_tile > cols:
+            col_tile = _cdiv(col_tile // 2, cols) * cols
+            band = max(1, min(rows, _cdiv(_FWD_LANES, col_tile // cols)))
+        else:
+            band = _cdiv(band, 2)
+        geo = tiling(col_tile, band)
+    return geo
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -322,12 +394,18 @@ def dw_spatial_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.T
         return dw_spatial_plain(x, w, stride)
     _check_cuda_operands("dw_spatial_fwd", x=x, w=w)
     k = w.shape[0]
+    if k not in _COMPILED_KS:
+        raise NotImplementedError(f"dw_spatial_fwd: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
     b, t, h, wd, c = x.shape
     oh, ow = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
-    if b * t * oh > _INT32_MAX or ow * c > _INT32_MAX or h * wd * c > _INT32_MAX:
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    geo = fwd_launch_geometry(b * t, h, wd, c, k, stride, x.element_size(), sms)
+    if (h * wd * c > _INT32_MAX or oh * ow * c > _INT32_MAX
+            or any(g > m for g, m in zip(geo["grid"], _MAX_GRID)) or geo["smem_bytes"] > _MAX_SMEM_BYTES):
         raise ValueError(f"dw_spatial_fwd: shape {tuple(x.shape)} exceeds the kernel's grid")
     y = torch.empty((b, t, oh, ow, c), dtype=x.dtype, device=x.device)
-    _launch("dw_spatial_fwd", x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(), b * t, h, wd, c, k, stride)
+    _launch("dw_spatial_fwd", x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(), b * t, h, wd, c, k, stride,
+            geo["band"], geo["col_tile"], geo["cols"], geo["frames"], geo["bands_per_block"], geo["smem_bytes"])
     return y
 
 
@@ -383,8 +461,8 @@ def dw_spatial_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int,
     if _on_cpu(dy, w):
         return dw_spatial_dx_plain(dy, w, stride, hw)
     _check_cuda_operands("dw_spatial_dx", dy=dy, w=w)
-    if k not in _DX_KS:
-        raise NotImplementedError(f"dw_spatial_dx: the kernel is compiled for k in {_DX_KS}, got k={k}")
+    if k not in _COMPILED_KS:
+        raise NotImplementedError(f"dw_spatial_dx: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
     sms = torch.cuda.get_device_properties(dy.device).multi_processor_count
     geo = dx_launch_geometry(b * t, h, wd, c, k, stride, dy.element_size(), sms)
     if (h * wd * c > _INT32_MAX or oh * ow * c > _INT32_MAX
@@ -398,8 +476,8 @@ def dw_spatial_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int,
 
 def _check_grad_w(name: str, x: torch.Tensor, dy: torch.Tensor, k: int, positions: int) -> None:
     _check_cuda_operands(name, x=x, dy=dy)
-    if k not in _GRAD_W_KS:
-        raise NotImplementedError(f"{name}: the kernel is compiled for k in {_GRAD_W_KS}, got k={k}")
+    if k not in _COMPILED_KS:
+        raise NotImplementedError(f"{name}: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
     if positions + 65535 > _INT32_MAX or x.shape[-1] * k * k > _INT32_MAX:
         raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the kernel's grid")
 

@@ -81,6 +81,77 @@ def test_kernels_match_plain(cuda, k, stride, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "hw, c, k, stride",
+    [(hw, 24, k, s) for hw in ((33, 17), (7, 5)) for k in (3, 5) for s in (1, 2)]
+    + [(hw, c, 3, s) for hw, c in (((2, 70), 24), ((70, 3), 24), ((1, 1), 24), ((9, 11), 20), ((9, 11), 22),
+                                   ((10, 12), 264)) for s in (1, 2)],
+)
+def test_fwd_kernel_matches_plain_at_tile_edges(cuda, hw, c, k, stride, dtype):
+    """The edges of dw_spatial_fwd's tiling: H and W that are not multiples of
+    its bands and column tiles, frames wider or taller than one tile, a 1x1
+    frame, a channel tail (c=20 in bf16, c=22 in both: element-by-element
+    copies), k = 5 at both strides, and C wider than one tile of 8 channel
+    vectors (c=264). Held as test_kernels_match_plain holds the forward."""
+    rng = np.random.default_rng(20)
+    x = rand(rng, 2, 3, *hw, c).to(cuda, dtype)
+    w = (rand(rng, k, k, c) / k).to(cuda, dtype)
+    before = dw_kernels.LAUNCHES["dw_spatial_fwd"]
+    y = dw_kernels.dw_spatial_fwd(x, w, stride)
+    torch.cuda.synchronize()
+    assert dw_kernels.LAUNCHES["dw_spatial_fwd"] == before + 1
+    assert y.dtype == dtype
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(y.float(), dw_kernels.dw_spatial_plain(x.float(), w.float(), stride),
+                               rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw, c, k, stride", [((7, 5), 24, 3, 1), ((4, 4), 22, 3, 2), ((1, 1), 8, 5, 1)])
+def test_fwd_kernel_matches_plain_when_blocks_walk_frames(cuda, hw, c, k, stride, dtype):
+    """8192 small frames: each block walks several, staging the next frame
+    while it computes this one (the last block walks fewer when the count
+    does not divide). Held as test_kernels_match_plain holds the forward."""
+    rng = np.random.default_rng(23)
+    x = rand(rng, 64, 128, *hw, c).to(cuda, dtype)
+    w = (rand(rng, k, k, c) / k).to(cuda, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert dw_kernels.fwd_launch_geometry(64 * 128, *hw, c, k, stride, x.element_size(), sms)["frames"] > 1
+    y = dw_kernels.dw_spatial_fwd(x, w, stride)
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(y.float(), dw_kernels.dw_spatial_plain(x.float(), w.float(), stride),
+                               rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_fwd_kernel_is_the_same_from_run_to_run(cuda, stride):
+    """At a flagship width (448 channels, a 32x32 frame of block 1 or 64x64 of
+    block 0), three reruns are bitwise equal: one pass, no atomics."""
+    rng = np.random.default_rng(21)
+    h = 32 * stride
+    x = rand(rng, 2, 8, h, h, 448).to(cuda, torch.bfloat16)
+    w = (rand(rng, 3, 3, 448) / 3).to(cuda, torch.bfloat16)
+    first = dw_kernels.dw_spatial_fwd(x, w, stride)
+    assert all(torch.equal(first, dw_kernels.dw_spatial_fwd(x, w, stride)) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_fwd_kernel_refuses_other_kernel_sizes_on_the_card(cuda):
+    """k = 7 is not compiled: the wrapper raises before launching on the card,
+    while the CPU path still answers through the plain version."""
+    rng = np.random.default_rng(22)
+    x, w = rand(rng, 1, 2, 9, 8, 8), rand(rng, 7, 7, 8)
+    before = dw_kernels.LAUNCHES["dw_spatial_fwd"]
+    with pytest.raises(NotImplementedError, match="k=7"):
+        dw_kernels.dw_spatial_fwd(x.to(cuda), w.to(cuda), 1)
+    assert dw_kernels.LAUNCHES["dw_spatial_fwd"] == before
+    assert dw_kernels.dw_spatial_fwd(x, w, 1).shape == (1, 2, 9, 8, 8)
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_bad_operands_on_the_card(cuda):
     x = torch.zeros(1, 2, 4, 4, 8, device=cuda)
     with pytest.raises(TypeError, match="float32 or bfloat16"):

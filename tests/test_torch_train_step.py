@@ -14,6 +14,7 @@ held to a noise bound instead of to each other).
 from __future__ import annotations
 
 import copy
+import types
 
 import jax
 import jax.numpy as jnp
@@ -355,6 +356,51 @@ def test_mouse_model_stages_bf16_inputs_on_the_host():
     staged = model._stage_inputs(x)
     assert staged.dtype == torch.bfloat16
     assert torch.equal(staged, torch.from_numpy(x).to(torch.bfloat16))
+
+
+class _Teacher(torch.nn.Module):
+    """A stand-in distillation teacher, with a ``dtype`` attribute or without."""
+
+    def __init__(self, dtype=None):
+        super().__init__()
+        if dtype is not None:
+            self.dtype = dtype
+
+    def forward(self, x):
+        return x
+
+
+@pytest.mark.parametrize("teacher_dtype, env", [("none", None), ("bfloat16", None), ("float32", None),
+                                                (None, "0"), ("bfloat16", "0")])
+def test_mouse_model_stages_inputs_as_jax_does_for_a_distillation_teacher(teacher_dtype, env, monkeypatch):
+    """A bf16 student stages bf16 only with no teacher or a bf16 one, and not
+    under ``SENSORIUM_STAGE_BF16=0``, as JAX's ``MouseModel._stage_inputs``
+    (``_is_bf16``) rules: a teacher without ``dtype`` counts as not bf16, and
+    then gets the float32 batch as it is."""
+    if env is None:
+        monkeypatch.delenv("SENSORIUM_STAGE_BF16", raising=False)
+    else:
+        monkeypatch.setenv("SENSORIUM_STAGE_BF16", env)
+    params = tiny_params()
+    name, nn_params = params["nn_module"]
+    model = MouseModel({**params, "nn_module": (name, {**nn_params, "dtype": "bfloat16"})}, device="cpu")
+    model.build_state(seed=0, learning_rate=1e-3)
+    torch_dtypes = {"none": None, "bfloat16": torch.bfloat16, "float32": torch.float32}
+    jax_dtypes = {"none": None, "bfloat16": jnp.bfloat16, "float32": jnp.float32}
+    jax_teacher = None
+    if teacher_dtype is not None:
+        model.set_distill(_Teacher(torch_dtypes[teacher_dtype]), 0.3)
+        jax_teacher = object() if teacher_dtype == "none" else types.SimpleNamespace(dtype=jax_dtypes[teacher_dtype])
+    x = np.random.default_rng(1).uniform(0, 255, (2, 5, 4, 16, 16)).astype(np.float32)
+    staged = model._stage_inputs(x)
+    jax_staged = np.asarray(JaxMouseModel._stage_inputs(
+        types.SimpleNamespace(nn_module=types.SimpleNamespace(dtype=jnp.bfloat16), teacher_module=jax_teacher), x))
+    bf16 = jax_staged.dtype == jnp.bfloat16
+    assert bf16 == (teacher_dtype in (None, "bfloat16") and env != "0")
+    assert staged.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    np.testing.assert_array_equal(staged.float().numpy(), jax_staged.astype(np.float32))
+    if not bf16:
+        assert torch.equal(staged, torch.from_numpy(x))
 
 
 def test_training_forward_needs_a_generator_when_it_drops():
