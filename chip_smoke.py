@@ -43,10 +43,11 @@ Phases, each of which passes or makes the script exit non-zero:
    ``aten.convolution_backward`` (cuDNN) asked for the input or the weight
    gradient only, of the grouped ``conv3d`` and of phase 3's 2-D view;
    both are recorded, with the 2-D gradient's difference from the plain
-   version. The dx cases add edges the kernel's tiling can get wrong: H
-   and W that are not multiples of its tiles, a channel tail (C not a
-   multiple of 8 in bf16 or of 4 in fp32), k = 5 at both strides, and C
-   wider than one channel tile;
+   version. The dx and dw cases add edges the kernels' tilings can get
+   wrong: H and W that are not multiples of their tiles, a channel tail (C
+   not a multiple of 8 in bf16 or of 4 in fp32), k = 5 at both strides, and
+   C wider than one channel tile; dw also a 1x1 frame and 8192 small frames,
+   so that each block walks many;
 7. train: the flagship ``MouseModel`` (the config's mice_poisson loss and
    AdamW, lr 2.4e-3 held constant, weight decay 0.05, EMA 0.999, seeded
    random weights) takes 2 warm-up and 10 timed steps on one synthetic batch
@@ -516,7 +517,7 @@ def profile(fn, label: str, trace: Path, top_n: int = 15) -> dict:
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top_n]
     rows = [{"kernel": e.key[:120], "count": e.count, "ms": e.self_device_time_total / 1e3,
              "share": e.self_device_time_total / busy_us if busy_us else 0.0} for e in top]
-    # The port's own kernels by the CUDA function names of csrc/ (dw_spatial_dw_partial for dw_spatial_dw).
+    # The port's own kernels by the CUDA function names of csrc/ (dw_spatial_dw_kernel for dw_spatial_dw).
     port = {name: sum(e.self_device_time_total for e in kernels if f"{name}_" in e.key) / 1e3
             for name in ("dw_spatial_fwd", "dw_temporal_fwd", "dw_spatial_dx", "dw_spatial_dw", "dw_temporal_dw")}
     print(f"profile: {label} under torch.profiler, wall {wall_us / 1e3:.1f} ms, "
@@ -581,13 +582,21 @@ def backward_cases() -> list[dict]:
                     cases.append({"kernel": kernel, "hw": hw, "c": 24, "stride": stride, "k": k, "blocks": [],
                                   "batch": (2, 3)})
             cases.append({"kernel": "dw_temporal_dw", "hw": hw, "c": 24, "k": k, "blocks": [], "batch": (2, 3)})
-    # dx: sizes that are not multiples of the tiles, channel tails, C wider than a channel tile.
+    # dx and dw: sizes that are not multiples of the tiles, channel tails, C
+    # wider than a channel tile; dw also a 1x1 frame.
     for hw, c, ks in (((33, 17), 24, (3, 5)), ((7, 5), 24, (3, 5)), ((9, 11), 20, (3,)), ((9, 11), 22, (3,)),
-                      ((10, 12), 264, (3,))):
+                      ((10, 12), 264, (3,)), ((1, 1), 24, (3,))):
         for k in ks:
             for stride in (1, 2):
-                cases.append({"kernel": "dw_spatial_dx", "hw": hw, "c": c, "stride": stride, "k": k, "blocks": [],
-                              "batch": (2, 3)})
+                for kernel in ("dw_spatial_dx", "dw_spatial_dw"):
+                    if hw == (1, 1) and kernel == "dw_spatial_dx":
+                        continue
+                    cases.append({"kernel": kernel, "hw": hw, "c": c, "stride": stride, "k": k, "blocks": [],
+                                  "batch": (2, 3)})
+    # dw: enough small frames that each block walks many of them.
+    for hw, c, k, stride in (((7, 5), 24, 3, 1), ((4, 4), 22, 3, 2), ((1, 1), 8, 5, 1)):
+        cases.append({"kernel": "dw_spatial_dw", "hw": hw, "c": c, "stride": stride, "k": k, "blocks": [],
+                      "batch": (64, 128)})
     return cases
 
 

@@ -37,6 +37,8 @@
 //    computes (double-buffered). Out-of-frame rows and columns are copied as
 //    zeros (a source size of 0), which is the zero padding, so the tap loops
 //    carry no bounds checks. Each x element leaves L2 about once per block.
+//    The staging (stage_x_rows) lives in dw_vec.cuh: dw_spatial_dw stages the
+//    same x rows for the same bands of output rows.
 //  - Where one band holds a whole frame (the 8x8 outputs of the deep
 //    blocks), a block's life would be one copy and one short band of
 //    arithmetic, with nothing to hide the copy behind. There a block walks
@@ -97,36 +99,6 @@ struct FwdGeometry {
   int vec;              // 1: 16-byte copies and stores; 0: element by element
 };
 
-// x rows [r_begin, r_end] of frame xn, columns xcol0 .. xcol0 + tile_cols - 1,
-// the channel vector from channel ch, into their ring slots: row r in slot
-// (base + r + P) % ring; zeros outside x. The loops stay rolled: unrolled,
-// their addresses take registers that the tap loops need.
-template <typename T, int P>
-__device__ __forceinline__ void stage_x_rows(uint4* __restrict__ ring, const T* __restrict__ xn,
-                                             const FwdGeometry& g, int r_begin, int r_end, int base, int xcol0,
-                                             int ch) {
-  const int v = threadIdx.x % kFwdTileVecs;
-  const int lane = threadIdx.x / kFwdTileVecs;
-#pragma unroll 1
-  for (int r = r_begin; r <= r_end; ++r) {
-    const bool row_inside = r >= 0 && r < g.h && ch < g.c;
-    uint4* dst_row = ring + ((base + r + P) % g.ring) * g.tile_cols * kFwdTileVecs + v;
-    const T* src_row = xn + (row_inside ? r * g.wd * g.c + ch : 0);
-#pragma unroll 1
-    for (int cc = lane; cc < g.tile_cols; cc += kFwdLanes) {
-      const int col = xcol0 + cc;
-      const bool inside = row_inside && col >= 0 && col < g.wd;
-      const T* src = inside ? src_row + col * g.c : xn;
-      uint4* dst = dst_row + cc * kFwdTileVecs;
-      if (g.vec) {
-        cp_async16(dst, src, inside ? 16 : 0);
-      } else {
-        *dst = inside ? Vec16<T>::load(src, g.c - ch) : make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-  }
-}
-
 // Block (frames and row group, channel tile, column tile); thread (channel
 // vector v = tid % 8, position lane tid / 8). The block walks a sequence of
 // bands: the bands of its row group in one frame, or one band (the whole
@@ -173,8 +145,9 @@ dw_spatial_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __res
     if (!has_band(i)) return;
     const int s = walks ? 0 : row0 + i * g.band;
     const int r_begin = (walks || i == 0) ? s * S - kP : (s - 1) * S + K - kP;
-    stage_x_rows<T, kP>(ring, x + static_cast<int64_t>(n0 + (walks ? i : 0)) * g.frame_in, g, r_begin,
-                        (s + g.band - 1) * S + K - 1 - kP, i * g.band_rows, col0 * S - kP, ch);
+    stage_x_rows<T, kP, kFwdTileVecs, kFwdLanes>(ring, x + static_cast<int64_t>(n0 + (walks ? i : 0)) * g.frame_in,
+                                                 g, r_begin, (s + g.band - 1) * S + K - 1 - kP, i * g.band_rows,
+                                                 col0 * S - kP, ch);
   };
   stage(0);
   cp_async_commit();

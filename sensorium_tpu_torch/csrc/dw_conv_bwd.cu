@@ -45,27 +45,70 @@
 //    equal. Where C is not a multiple of the vector width (or a pointer is not
 //    16-byte aligned) the same kernel stages and stores element by element.
 //
-// dw_spatial_dw replaces _dw_spatial_grad_w (_dw_spatial_dw_kernel and, at
-// stride 2, _dw_spatial_dw_s2_kernel on parity planes):
+// dw_spatial_dw replaces _dw_spatial_grad_w of sensorium_tpu/ops/pallas_dw.py
+// (_dw_spatial_dw_kernel and, at stride 2, _dw_spatial_dw_s2_kernel on parity
+// planes):
 //   dw[di,dj,c] = sum over n, oh, ow of x_pad[n, s*oh+di, s*ow+dj, c] * dy[n,oh,ow,c]
+// in fp32, (k, k, C). Bound: bytes. It reads x and dy once (block 0 of a batch
+// of 32 x 16 frames: 2.35 GB in bf16, >= 0.70 ms at 3.35 TB/s; the 9 blocks of
+// a step >= 2.419 ms) and writes k*k*C floats; its k*k multiply-adds per dy
+// element are far below the card's ridge point. The TPU grid carries the sum
+// from frame to frame in VMEM; Hopper's blocks run in parallel and cannot, so
+// it is two deterministic passes: dw_spatial_dw_kernel writes one partial sum
+// per block into a fp32 workspace (slabs, k*k, C), and sum_slabs adds the
+// slabs in a fixed order. No atomics, so reruns are bitwise equal.
+// Design of dw_spatial_dw_kernel<T, K, S, W>:
+//  - k, the stride and W (adjacent outputs of one row per unit of work: 4 or
+//    2 at stride 1, 2 at stride 2) are template parameters, so the tap loops
+//    unroll and no division or modulo is left in them.
+//  - A thread owns one 16-byte vector of channels (8 bf16 or 4 fp32);
+//    neighbouring threads own neighbouring vectors. A block owns a tile of 8
+//    channel vectors, a tile of col_tile output columns and a run of
+//    per_block consecutive (frame, band) items, a band being `band` output
+//    rows of one frame. The runs cover all frames, and the grid is one wave
+//    of 2 blocks per SM where the channel and column tiles leave room, so a
+//    block walks many bands, small frames included, and writes one partial
+//    sum at its end.
+//  - For each band it stages the x rows the band reads, with their halo,
+//    into a ring in shared memory with cp.async, zeros outside the frame, and
+//    the band's dy rows beside them; the next band's rows are copied while
+//    this band computes. The next band of the same frame adds S*band new x
+//    rows; a new frame stages all S*(band-1)+K. So the tap loops carry no
+//    bounds checks, and every x and dy element leaves L2 about once. The
+//    staging costs instructions too: measured alone it took most of the
+//    kernel's time at the small frames, where ring rows are narrower than the
+//    lanes. So rows at least twice as wide as the lanes are staged row by row
+//    (stage_x_rows of dw_vec.cuh, the forward's staging), narrower ones cell
+//    by cell (stage_x_cells), dy likewise, with no division per cell.
+//  - Registers decide the tiling of the taps. At k = 3 a thread keeps all 9
+//    taps' accumulators (72 fp32 registers in bf16) and is capped at 128
+//    registers, for 2 blocks of 256 threads an SM. At k = 5 that would be
+//    200, so the lanes form 5 groups, one tap row each, that read the same
+//    staged dy (240 threads).
+//  - A unit is W adjacent outputs of one row. For each of its tap rows a
+//    thread converts the unit's W dy vectors and the S*(W-1)+K x vectors they
+//    meet, each x vector once, and adds x[S*o+dj] * dy[o] into the tap
+//    (row, dj) accumulators; the pairs (o, dj) are fixed at compile time.
+//  - At the end the block adds its position lanes in a fixed order through
+//    shared memory and writes its slab. The tiling (band, column tile, W,
+//    items per block, slabs, shared-memory bytes) comes from the wrapper
+//    (ops/dw_kernels.py dw_launch_geometry); the launcher derives the grid
+//    and refuses shared-memory bytes or a slab count that differ from its own.
+//  - 32-bit offsets inside a frame, one 64-bit frame base. Where C is not a
+//    multiple of the vector width (or a pointer is not 16-byte aligned) the
+//    same kernel stages element by element.
 // dw_temporal_dw replaces _dw_temporal_grad_w (_dw_temporal_dw_kernel):
 //   dw[dt,c] = sum over b, t, hw of x_pad[b, t+dt, hw, c] * dy[b,t,hw,c]
-// Both are sums of up to ~5e5 products per output across the whole tensor.
-// The TPU grid carries the sum from step to step in VMEM; Hopper's blocks run
-// in parallel and cannot. So each is two deterministic passes: (1) a block
-// reduces one slab of output positions for a tile of 32 channels into a fp32
-// workspace (slabs, taps, C): each thread keeps its taps' sums in registers,
-// then the block adds its 8 position lanes in a fixed order; (2) a second
-// kernel adds the slabs in a fixed order. No atomics, so the result is the
-// same from run to run. Bound: bytes, x and dy read once (block 0 spatial:
-// 2.35 GB in bf16, >= 0.70 ms). The wrapper picks the slab count so that
-// every SM has several blocks. Left for later: shared-memory tiles of x, so
-// that the k*k overlapping taps come from shared memory, and 16-byte loads.
+// in two passes of the same kind: a block reduces one slab of positions for a
+// tile of 32 channels (a thread per channel keeps its k sums in registers,
+// then the block adds its 8 position lanes in a fixed order), and sum_slabs
+// adds the slabs. Bound: bytes, x and dy read once. The wrapper picks the slab
+// count so that every SM has several blocks.
 //
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing (the caller passes dx, the workspace and dw) and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a kernel size it was not
-// compiled for (spatial and temporal k = 3 or 5) or a dx geometry it refuses.
+// compiled for (spatial and temporal k = 3 or 5) or a geometry it refuses.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -246,45 +289,195 @@ __device__ __forceinline__ void write_partials(const float (&acc)[kTaps], float*
   }
 }
 
-// Pass 1 of dw_spatial_dw. Positions p = (n*OH + oh)*OW + ow; slab
-// blockIdx.y holds positions [y*per_slab, (y+1)*per_slab).
-template <typename T, int K>
-__global__ void __launch_bounds__(kLanes * kRows)
-dw_spatial_dw_partial(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ ws,
-                      int h, int wd, int c, int oh, int ow, int stride, int positions, int per_slab) {
-  constexpr int kTaps = K * K;
-  constexpr int pad = K / 2;
-  const int ch = blockIdx.x * kLanes + threadIdx.x;
-  const int p0 = blockIdx.y * per_slab;
-  const int p1 = min(p0 + per_slab, positions);
-  float acc[kTaps];
+// ---------------------------------------------------------------- dw_spatial_dw
+
+constexpr int kDwTileVecs = 8;  // channel vectors per block
+
+// How dw_spatial_dw_kernel splits the taps: at k = 3 one thread holds all
+// k*k accumulator vectors; at k = 5 each of 5 groups of lanes holds one tap row.
+template <int K>
+struct DwTaps {
+  static constexpr int kGroups = K == 3 ? 1 : K;
+  static constexpr int kRows = K / kGroups;    // tap rows per thread
+  static constexpr int kLanes = 32 / kGroups;  // position lanes per group
+  static constexpr int kThreads = kDwTileVecs * kGroups * kLanes;
+};
+
+// The launch geometry of dw_spatial_dw_kernel (ops/dw_kernels.py dw_launch_geometry).
+struct DwGeometry {
+  int64_t frame_in, frame_out;  // elements of an x and a dy frame
+  int h, wd, c, oh, ow;
+  int band;           // output rows per band
+  int col_tile;       // output columns per block, a multiple of W
+  int bands;          // bands per frame
+  int items;          // (frame, band) items: n * bands
+  int per_block;      // consecutive items walked by one block
+  int frame_rows;     // x rows of one band: S*(band-1)+K
+  int units_per_row;  // col_tile / W
+  int ring;           // x rows held in the ring: 2 * frame_rows
+  int tile_cols;      // x columns per ring row: S*(col_tile-1)+K
+  int vec;            // 1: 16-byte copies; 0: element by element
+};
+
+// Block (run of items, channel tile, column tile); thread (channel vector v =
+// tid % 8, then tap-row group and position lane). Item j of the block's run
+// has its x rows at virtual rows vfirst(j) .. vfirst(j) + frame_rows - 1, in
+// slot virtual % ring: the next band of the same frame starts S*band rows
+// later, so the rows they share stay where they are, and a new frame starts
+// frame_rows later. Its dy rows sit in dy slot j % 2. Shared memory: the ring
+// [g.ring][g.tile_cols][8] and the dy slots [2][g.band][g.col_tile][8] of
+// 16-byte vectors; at the end, the lanes' partial sums [lanes][K*K][8][kVec]
+// floats over them.
+template <typename T, int K, int S, int W>
+__global__ void __launch_bounds__(DwTaps<K>::kThreads, 2)
+dw_spatial_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ ws, const DwGeometry g) {
+  using V = Vec16<T>;
+  using Taps = DwTaps<K>;
+  constexpr int kVec = V::kN;
+  constexpr int kP = K / 2;
+  constexpr int kWindow = S * (W - 1) + K;  // x columns a unit reads per tap row
+  constexpr int kStageLanes = Taps::kThreads / kDwTileVecs;
+  extern __shared__ uint4 smem[];
+  uint4* ring = smem;
+  uint4* dy_slots = smem + g.ring * g.tile_cols * kDwTileVecs;
+
+  const int v = threadIdx.x % kDwTileVecs;
+  const int stage_lane = threadIdx.x / kDwTileVecs;
+  const int group = stage_lane / Taps::kLanes;
+  const int lane = stage_lane - group * Taps::kLanes;
+  const int cv0 = blockIdx.y * kDwTileVecs;
+  const int ch = (cv0 + v) * kVec;
+  const int col0 = blockIdx.z * g.col_tile;
+  const int item0 = blockIdx.x * g.per_block;
+  const int count = min(g.per_block, g.items - item0);
+
+  // Item j's x rows that the ring does not hold yet (all of them when fresh:
+  // the first item, or the first band of a frame), virtual row vfirst
+  // first, and its dy rows into dy slot j % 2.
+  auto stage = [&](int j, int vfirst, bool fresh) {
+    const int item = item0 + j;
+    const int f = item / g.bands;
+    const int s = (item - f * g.bands) * g.band;
+    const int r0 = s * S - kP;  // the band's first x row
+    const T* xn = x + static_cast<int64_t>(f) * g.frame_in;
+    // Ring rows at least twice as wide as the lanes row by row, narrower ones
+    // cell by cell, so that no lane idles at the small frames.
+    if (g.tile_cols >= 2 * kStageLanes) {
+      stage_x_rows<T, kP, kDwTileVecs, kStageLanes>(ring, xn, g, fresh ? r0 : r0 + g.frame_rows - S * g.band,
+                                                  r0 + g.frame_rows - 1, vfirst - s * S, col0 * S - kP, ch);
+    } else {
+      stage_x_cells<T, kP, kDwTileVecs, kStageLanes>(ring, xn, g, fresh ? r0 : r0 + g.frame_rows - S * g.band,
+                                                   r0 + g.frame_rows - 1, vfirst - s * S, col0 * S - kP, ch);
+    }
+    const T* dyn = dy + static_cast<int64_t>(f) * g.frame_out;
+    uint4* slot = dy_slots + (j & 1) * g.band * g.col_tile * kDwTileVecs + v;
+    const int step_r = kStageLanes / g.col_tile;
+    const int step_c = kStageLanes - step_r * g.col_tile;
+    int rr = stage_lane / g.col_tile;
+    int cc = stage_lane - rr * g.col_tile;
+#pragma unroll 1
+    for (; rr < g.band;) {
+      const int a = s + rr;
+      const int b = col0 + cc;
+      const bool inside = a < g.oh && b < g.ow && ch < g.c;
+      const T* src = inside ? dyn + (a * g.ow + b) * g.c + ch : dyn;
+      uint4* dst = slot + (rr * g.col_tile + cc) * kDwTileVecs;
+      if (g.vec) {
+        cp_async16(dst, src, inside ? 16 : 0);
+      } else {
+        *dst = inside ? V::load(src, g.c - ch) : make_uint4(0u, 0u, 0u, 0u);
+      }
+      rr += step_r;
+      cc += step_c;
+      if (cc >= g.col_tile) {
+        cc -= g.col_tile;
+        ++rr;
+      }
+    }
+  };
+
+  float acc[Taps::kRows][K][kVec];
 #pragma unroll
-  for (int t = 0; t < kTaps; ++t) acc[t] = 0.0f;
-  if (ch < c) {
-    for (int p = p0 + threadIdx.y; p < p1; p += kRows) {
-      const int out_w = p % ow;
-      const int q = p / ow;
-      const int out_h = q % oh;
-      const int64_t n = q / oh;
-      const float g = to_float(dy[static_cast<int64_t>(p) * c + ch]);
-      const T* xn = x + n * static_cast<int64_t>(h) * wd * c + ch;
-      const int ih0 = out_h * stride - pad;
-      const int iw0 = out_w * stride - pad;
+  for (int r = 0; r < Taps::kRows; ++r) {
 #pragma unroll
-      for (int di = 0; di < K; ++di) {
-        const int ih = ih0 + di;
-        if (ih < 0 || ih >= h) continue;
+    for (int dj = 0; dj < K; ++dj) {
 #pragma unroll
-        for (int dj = 0; dj < K; ++dj) {
-          const int iw = iw0 + dj;
-          if (iw < 0 || iw >= wd) continue;
-          acc[di * K + dj] =
-              fmaf(to_float(xn[(static_cast<int64_t>(ih) * wd + iw) * c]), g, acc[di * K + dj]);
+      for (int i = 0; i < kVec; ++i) acc[r][dj][i] = 0.0f;
+    }
+  }
+  // One cp.async group per item, empty past the last, so that waiting for
+  // all but the newest group always means item j has landed.
+  if (count > 0) stage(0, 0, true);
+  cp_async_commit();
+  int vfirst = 0;  // of item j
+  for (int j = 0; j < count; ++j) {
+    const int item = item0 + j;
+    const int s = item % g.bands * g.band;
+    int vnext = vfirst;
+    if (j + 1 < count) {
+      const bool fresh = (item + 1) % g.bands == 0;
+      vnext += fresh ? g.frame_rows : S * g.band;
+      stage(j + 1, vnext, fresh);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+
+    const int units = ch < g.c ? min(g.band, g.oh - s) * g.units_per_row : 0;
+    const int vmod = vfirst % g.ring;
+    const uint4* dy_band = dy_slots + (j & 1) * g.band * g.col_tile * kDwTileVecs + v;
+    for (int u = lane; u < units; u += Taps::kLanes) {
+      const int rs = u / g.units_per_row;
+      const int cu = u - rs * g.units_per_row;
+      if (col0 + cu * W >= g.ow) continue;
+      const uint4* dyu = dy_band + (rs * g.col_tile + cu * W) * kDwTileVecs;
+#pragma unroll
+      for (int r = 0; r < Taps::kRows; ++r) {
+        int slot = vmod + rs * S + group * Taps::kRows + r;  // x row s*S - P + rs*S + di
+        slot -= slot >= g.ring ? g.ring : 0;
+        const uint4* row = ring + (slot * g.tile_cols + cu * W * S) * kDwTileVecs + v;
+        float xf[kWindow][kVec];
+#pragma unroll
+        for (int o = 0; o < W; ++o) {
+          float d[kVec];
+          V::unpack(d, dyu[o * kDwTileVecs]);
+#pragma unroll
+          for (int dj = 0; dj < K; ++dj) {
+            const int col = S * o + dj;  // decided at compile time
+            if (o == 0 || dj >= K - S) V::unpack(xf[col], row[col * kDwTileVecs]);  // its first use
+#pragma unroll
+            for (int i = 0; i < kVec; ++i) acc[r][dj][i] = fmaf(xf[col][i], d[i], acc[r][dj][i]);
+          }
         }
       }
     }
+    __syncthreads();
+    vfirst = vnext;
   }
-  write_partials<kTaps>(acc, ws, c);
+
+  // The lanes' partial sums, added in lane order.
+  constexpr int kTapFloats = kDwTileVecs * kVec;  // floats of one tap of the channel tile
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int r = 0; r < Taps::kRows; ++r) {
+#pragma unroll
+    for (int dj = 0; dj < K; ++dj) {
+      float* dst = part + (lane * K * K + (group * Taps::kRows + r) * K + dj) * kTapFloats + v * kVec;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) dst[i] = acc[r][dj][i];
+    }
+  }
+  __syncthreads();
+  const int64_t slab = blockIdx.x + static_cast<int64_t>(gridDim.x) * blockIdx.z;
+  for (int e = threadIdx.x; e < K * K * kTapFloats; e += Taps::kThreads) {
+    const int tap = e / kTapFloats;
+    const int rest = e - tap * kTapFloats;
+    const int chan = cv0 * kVec + rest;
+    if (chan >= g.c) continue;
+    float sum = 0.0f;
+    for (int l = 0; l < Taps::kLanes; ++l) sum += part[(l * K * K + tap) * kTapFloats + rest];
+    ws[(slab * K * K + tap) * g.c + chan] = sum;
+  }
 }
 
 // Pass 1 of dw_temporal_dw. Positions p = (b*T + t)*HW + hw.
@@ -391,33 +584,86 @@ int launch_spatial_dx(const void* dy, const void* w, void* dx, int64_t n, int64_
                      : launch_spatial_dx_kernel<T, 5, 2>(dyp, wp, dxp, g, grid, smem, s);
 }
 
+template <typename T, int K, int S, int W>
+int launch_spatial_dw_kernel(const T* x, const T* dy, float* ws, const DwGeometry& g, dim3 grid, int smem,
+                             cudaStream_t stream) {
+  auto* kernel = dw_spatial_dw_kernel<T, K, S, W>;
+  if (smem > 48 * 1024) {
+    const cudaError_t status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (status != cudaSuccess) return static_cast<int>(status);
+  }
+  kernel<<<grid, DwTaps<K>::kThreads, smem, stream>>>(x, dy, ws, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int K>
+int dispatch_spatial_dw(const T* x, const T* dy, float* ws, const DwGeometry& g, int stride, int cols, dim3 grid,
+                        int smem, cudaStream_t stream) {
+  if (stride == 2) return launch_spatial_dw_kernel<T, K, 2, 2>(x, dy, ws, g, grid, smem, stream);
+  return cols == 4 ? launch_spatial_dw_kernel<T, K, 1, 4>(x, dy, ws, g, grid, smem, stream)
+                   : launch_spatial_dw_kernel<T, K, 1, 2>(x, dy, ws, g, grid, smem, stream);
+}
+
+// band, col_tile, cols (W), per_block, slabs and smem_bytes come from the
+// wrapper; the rest of the geometry follows from them here. The workspace
+// holds slabs * k*k * c floats, dw k*k * c.
 template <typename T>
-int launch_spatial_dw(const void* x, const void* dy, void* ws, void* out, int64_t n, int64_t h,
-                      int64_t wd, int64_t c, int64_t k, int64_t stride, int64_t slabs, void* stream) {
+int launch_spatial_dw(const void* x, const void* dy, void* ws, void* out, int64_t n, int64_t h, int64_t wd,
+                      int64_t c, int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t cols,
+                      int64_t per_block, int64_t slabs, int64_t smem_bytes, void* stream) {
+  constexpr int kVec = Vec16<T>::kN;
+  const bool cols_ok = stride == 1 ? (cols == 2 || cols == 4) : (stride == 2 && cols == 2);
+  if ((k != 3 && k != 5) || !cols_ok || band < 1 || col_tile < 1 || col_tile % cols != 0 || per_block < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int64_t pad = k / 2;
-  const int64_t oh = (h + 2 * pad - k) / stride + 1;
-  const int64_t ow = (wd + 2 * pad - k) / stride + 1;
-  const int64_t positions = n * oh * ow;
-  const int64_t per_slab = (positions + slabs - 1) / slabs;
-  const dim3 grid(static_cast<unsigned int>((c + kLanes - 1) / kLanes), static_cast<unsigned int>(slabs));
-  const dim3 block(kLanes, kRows);
+  const int64_t oh = (h + 2 * pad - k) / stride + 1, ow = (wd + 2 * pad - k) / stride + 1;
+  DwGeometry g;
+  g.frame_in = h * wd * c;
+  g.frame_out = oh * ow * c;
+  g.h = static_cast<int>(h);
+  g.wd = static_cast<int>(wd);
+  g.c = static_cast<int>(c);
+  g.oh = static_cast<int>(oh);
+  g.ow = static_cast<int>(ow);
+  g.band = static_cast<int>(band);
+  g.col_tile = static_cast<int>(col_tile);
+  g.bands = static_cast<int>((oh + band - 1) / band);
+  g.items = static_cast<int>(n * g.bands);
+  g.per_block = static_cast<int>(per_block);
+  g.frame_rows = static_cast<int>(stride * (band - 1) + k);
+  g.units_per_row = static_cast<int>(col_tile / cols);
+  g.ring = 2 * g.frame_rows;
+  g.tile_cols = static_cast<int>(stride * (col_tile - 1) + k);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  g.vec = c % kVec == 0 && aligned(x) && aligned(dy);
+  const int64_t lanes = k == 3 ? DwTaps<3>::kLanes : DwTaps<5>::kLanes;
+  const int64_t ring_bytes = (static_cast<int64_t>(g.ring) * g.tile_cols + 2 * band * col_tile) * kDwTileVecs * 16;
+  const int64_t part_bytes = lanes * k * k * kDwTileVecs * kVec * 4;
+  if (smem_bytes != (ring_bytes > part_bytes ? ring_bytes : part_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto s = static_cast<cudaStream_t>(stream);
+  const int len = static_cast<int>(k * k * c);
+  if (c == 0) return static_cast<int>(cudaGetLastError());
+  if (n == 0 || h == 0 || wd == 0) {  // no products: dw is 0
+    const cudaError_t status = cudaMemsetAsync(out, 0, static_cast<size_t>(len) * sizeof(float), s);
+    return static_cast<int>(status != cudaSuccess ? status : cudaGetLastError());
+  }
+  const int64_t cvecs = (c + kVec - 1) / kVec;
+  const dim3 grid(static_cast<unsigned int>((g.items + per_block - 1) / per_block),
+                  static_cast<unsigned int>((cvecs + kDwTileVecs - 1) / kDwTileVecs),
+                  static_cast<unsigned int>((ow + col_tile - 1) / col_tile));
+  if (slabs != static_cast<int64_t>(grid.x) * grid.z) return static_cast<int>(cudaErrorInvalidValue);
   const auto* xp = static_cast<const T*>(x);
   const auto* dyp = static_cast<const T*>(dy);
   auto* wsp = static_cast<float*>(ws);
-  const int args[] = {static_cast<int>(h), static_cast<int>(wd), static_cast<int>(c), static_cast<int>(oh),
-                      static_cast<int>(ow), static_cast<int>(stride), static_cast<int>(positions),
-                      static_cast<int>(per_slab)};
-  if (k == 3) {
-    dw_spatial_dw_partial<T, 3><<<grid, block, 0, s>>>(xp, dyp, wsp, args[0], args[1], args[2], args[3],
-                                                         args[4], args[5], args[6], args[7]);
-  } else if (k == 5) {
-    dw_spatial_dw_partial<T, 5><<<grid, block, 0, s>>>(xp, dyp, wsp, args[0], args[1], args[2], args[3],
-                                                         args[4], args[5], args[6], args[7]);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return finish_reduction(wsp, static_cast<float*>(out), static_cast<int>(slabs), static_cast<int>(k * k * c), s);
+  const int smem = static_cast<int>(smem_bytes);
+  const int st = static_cast<int>(stride), cl = static_cast<int>(cols);
+  const int status = k == 3 ? dispatch_spatial_dw<T, 3>(xp, dyp, wsp, g, st, cl, grid, smem, s)
+                            : dispatch_spatial_dw<T, 5>(xp, dyp, wsp, g, st, cl, grid, smem, s);
+  if (status != 0) return status;
+  return finish_reduction(wsp, static_cast<float*>(out), static_cast<int>(slabs), len, s);
 }
 
 template <typename T>
@@ -464,13 +710,17 @@ int dw_spatial_dx_bf16(const void* dy, const void* w, void* dx, int64_t n, int64
 }
 
 int dw_spatial_dw_f32(const void* x, const void* dy, void* ws, void* out, int64_t n, int64_t h, int64_t wd,
-                      int64_t c, int64_t k, int64_t stride, int64_t slabs, void* stream) {
-  return launch_spatial_dw<float>(x, dy, ws, out, n, h, wd, c, k, stride, slabs, stream);
+                      int64_t c, int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t cols,
+                      int64_t per_block, int64_t slabs, int64_t smem_bytes, void* stream) {
+  return launch_spatial_dw<float>(x, dy, ws, out, n, h, wd, c, k, stride, band, col_tile, cols, per_block, slabs,
+                                  smem_bytes, stream);
 }
 
 int dw_spatial_dw_bf16(const void* x, const void* dy, void* ws, void* out, int64_t n, int64_t h, int64_t wd,
-                       int64_t c, int64_t k, int64_t stride, int64_t slabs, void* stream) {
-  return launch_spatial_dw<__nv_bfloat16>(x, dy, ws, out, n, h, wd, c, k, stride, slabs, stream);
+                       int64_t c, int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t cols,
+                       int64_t per_block, int64_t slabs, int64_t smem_bytes, void* stream) {
+  return launch_spatial_dw<__nv_bfloat16>(x, dy, ws, out, n, h, wd, c, k, stride, band, col_tile, cols, per_block,
+                                          slabs, smem_bytes, stream);
 }
 
 int dw_temporal_dw_f32(const void* x, const void* dy, void* ws, void* out, int64_t batch, int64_t t_len,

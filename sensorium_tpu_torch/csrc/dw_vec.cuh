@@ -1,7 +1,9 @@
 // Device helpers shared by dw_conv.cu and dw_conv_bwd.cu: scalar conversions,
-// 16-byte channel vectors, and asynchronous copies from global to shared
-// memory (cp.async). Each source includes this header into its own library,
-// so everything here is internal to the including file.
+// 16-byte channel vectors, asynchronous copies from global to shared memory
+// (cp.async), and the staging of x rows with their halo into a ring in shared
+// memory that dw_spatial_fwd and dw_spatial_dw share. Each source includes
+// this header into its own library, so everything here is internal to the
+// including file.
 
 #pragma once
 
@@ -103,4 +105,77 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
+// x rows [r_begin, r_end] of frame xn, columns xcol0 .. xcol0 + g.tile_cols - 1,
+// the channel vector from channel ch, into their ring slots: row r in slot
+// (base + r + P) % g.ring of [g.ring][g.tile_cols][kVecs] 16-byte vectors;
+// zeros outside x (rows, columns and channels), which is the zero padding.
+// Thread tid copies channel vector tid % kVecs of the columns tid / kVecs,
+// tid / kVecs + kLanes, ... The loops stay rolled: unrolled, their addresses
+// take registers that the callers' tap loops need. Geo has the frame's h, wd
+// and c, the ring's rows and columns, and vec (1: 16-byte cp.async copies;
+// 0: element by element, for channel tails and unaligned pointers).
+template <typename T, int P, int kVecs, int kLanes, typename Geo>
+__device__ __forceinline__ void stage_x_rows(uint4* __restrict__ ring, const T* __restrict__ xn, const Geo& g,
+                                             int r_begin, int r_end, int base, int xcol0, int ch) {
+  const int v = threadIdx.x % kVecs;
+  const int lane = threadIdx.x / kVecs;
+#pragma unroll 1
+  for (int r = r_begin; r <= r_end; ++r) {
+    const bool row_inside = r >= 0 && r < g.h && ch < g.c;
+    uint4* dst_row = ring + ((base + r + P) % g.ring) * g.tile_cols * kVecs + v;
+    const T* src_row = xn + (row_inside ? r * g.wd * g.c + ch : 0);
+#pragma unroll 1
+    for (int cc = lane; cc < g.tile_cols; cc += kLanes) {
+      const int col = xcol0 + cc;
+      const bool inside = row_inside && col >= 0 && col < g.wd;
+      const T* src = inside ? src_row + col * g.c : xn;
+      uint4* dst = dst_row + cc * kVecs;
+      if (g.vec) {
+        cp_async16(dst, src, inside ? 16 : 0);
+      } else {
+        *dst = inside ? Vec16<T>::load(src, g.c - ch) : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// stage_x_rows with the (row, column) cells of all rows dealt to the lanes in
+// turn, so that no lane idles where a ring row is narrower than the lanes (the
+// small frames). Each lane steps its row, column and slot on without a
+// division.
+template <typename T, int P, int kVecs, int kLanes, typename Geo>
+__device__ __forceinline__ void stage_x_cells(uint4* __restrict__ ring, const T* __restrict__ xn, const Geo& g,
+                                              int r_begin, int r_end, int base, int xcol0, int ch) {
+  const int v = threadIdx.x % kVecs;
+  const int lane = threadIdx.x / kVecs;
+  const int step_r = kLanes / g.tile_cols;
+  const int step_c = kLanes - step_r * g.tile_cols;
+  int rr = lane / g.tile_cols;
+  int cc = lane - rr * g.tile_cols;
+  int slot = (base + r_begin + P) % g.ring + rr;
+  slot -= slot >= g.ring ? g.ring : 0;
+  const bool chan_inside = ch < g.c;
+#pragma unroll 1
+  for (int r = r_begin + rr; r <= r_end;) {
+    const int col = xcol0 + cc;
+    const bool inside = chan_inside && r >= 0 && r < g.h && col >= 0 && col < g.wd;
+    const T* src = inside ? xn + (r * g.wd + col) * g.c + ch : xn;
+    uint4* dst = ring + (slot * g.tile_cols + cc) * kVecs + v;
+    if (g.vec) {
+      cp_async16(dst, src, inside ? 16 : 0);
+    } else {
+      *dst = inside ? Vec16<T>::load(src, g.c - ch) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    r += step_r;
+    slot += step_r;
+    cc += step_c;
+    if (cc >= g.tile_cols) {
+      cc -= g.tile_cols;
+      ++r;
+      ++slot;
+    }
+    while (slot >= g.ring) slot -= g.ring;
+  }
+}

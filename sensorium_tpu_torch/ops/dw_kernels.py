@@ -53,13 +53,14 @@ _SIGNATURES = {
     "dw_spatial_fwd": ("dw_conv", 3, 12),
     "dw_temporal_fwd": ("dw_conv", 3, 5),
     "dw_spatial_dx": ("dw_conv_bwd", 3, 10),
-    "dw_spatial_dw": ("dw_conv_bwd", 4, 7),
+    "dw_spatial_dw": ("dw_conv_bwd", 4, 12),
     "dw_temporal_dw": ("dw_conv_bwd", 4, 6),
     "fused_bn_silu_dw_spatial": ("fused_bn_silu_dw", 5, 6),
 }
 # Kernel sizes the spatial forward, dx and weight-gradient kernels are compiled for.
 _COMPILED_KS = (3, 5)
-# Channels per reduction block and position lanes per block (dw_conv_bwd.cu).
+# Channels per reduction block and position lanes per block of dw_temporal_dw
+# (dw_conv_bwd.cu).
 _LANES, _ROWS = 32, 8
 # dw_spatial_dx_kernel (dw_conv_bwd.cu, 256 threads a block): 16-byte channel
 # vectors per block; output steps per band (four for each of the block's 32
@@ -79,6 +80,21 @@ _FWD_SMEM_BUDGET = 233_472 // _FWD_BLOCKS_PER_SM - 1024
 # Where a band holds a whole frame, a block walks 2 frames if that leaves at
 # least this many blocks per SM.
 _FWD_WALK_MIN_BLOCKS = 24
+# dw_spatial_dw_kernel (dw_conv_bwd.cu): 16-byte channel vectors per block;
+# tap-row groups by k (k = 3: a thread holds all 9 taps' accumulators; k = 5:
+# 5 groups of lanes, one tap row each), each group of 32 / groups position
+# lanes; units (W adjacent outputs of one row) per band, about; the units of
+# 4 outputs a frame must have for W = 4 at stride 1 (the 8x8 frames of block
+# 8 take it, half the lanes idle, for fewer conversions); output columns per
+# block at most; the blocks per SM its registers are capped for, and the
+# shared memory that leaves a block.
+_DW_TILE_VECS = 8
+_DW_TAP_GROUPS = {3: 1, 5: 5}
+_DW_UNITS = 32
+_DW_W4_UNITS = 16
+_DW_MAX_COL_TILE = 32
+_DW_BLOCKS_PER_SM = 2
+_DW_SMEM_BUDGET = 233_472 // _DW_BLOCKS_PER_SM - 1024
 # Shared memory a block can use on Hopper, and CUDA's grid limits.
 _MAX_SMEM_BYTES = 232_448
 _MAX_GRID = (_INT32_MAX, 65535, 65535)
@@ -130,6 +146,25 @@ def dx_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, ite
     }
 
 
+def _fit_tiles(rows: int, out_cols: int, cols: int, units: int, max_col_tile: int, budget: int, tiling) -> dict:
+    """``tiling(col_tile, band)`` of the widest column tile (at most
+    ``max_col_tile``, a multiple of ``cols``) and a band of about ``units``
+    units of ``cols`` outputs whose shared memory fits ``budget`` bytes: the
+    column tile halves first, then the band. The forward and the weight
+    gradient stage the same x rows for their bands and tile them alike."""
+    col_tile = min(_cdiv(out_cols, cols) * cols, max_col_tile)
+    band = max(1, min(rows, _cdiv(units, col_tile // cols)))
+    geo = tiling(col_tile, band)
+    while geo["smem_bytes"] > budget and (col_tile > cols or band > 1):
+        if col_tile > cols:
+            col_tile = _cdiv(col_tile // 2, cols) * cols
+            band = max(1, min(rows, _cdiv(units, col_tile // cols)))
+        else:
+            band = _cdiv(band, 2)
+        geo = tiling(col_tile, band)
+    return geo
+
+
 def fwd_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, itemsize: int, sms: int) -> dict:
     """The tiling of ``dw_spatial_fwd_kernel`` for ``n`` frames of x (h, wd, c).
 
@@ -179,17 +214,64 @@ def fwd_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, it
             "smem_bytes": ring * tile_cols * _FWD_TILE_VECS * 16 + weight_bytes,
         }
 
-    col_tile = min(_cdiv(out_cols, cols) * cols, _FWD_MAX_COL_TILE)
-    band = max(1, min(rows, _cdiv(_FWD_LANES, col_tile // cols)))
-    geo = tiling(col_tile, band)
-    while geo["smem_bytes"] > _FWD_SMEM_BUDGET and (col_tile > cols or band > 1):
-        if col_tile > cols:
-            col_tile = _cdiv(col_tile // 2, cols) * cols
-            band = max(1, min(rows, _cdiv(_FWD_LANES, col_tile // cols)))
-        else:
-            band = _cdiv(band, 2)
-        geo = tiling(col_tile, band)
-    return geo
+    return _fit_tiles(rows, out_cols, cols, _FWD_LANES, _FWD_MAX_COL_TILE, _FWD_SMEM_BUDGET, tiling)
+
+
+def dw_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, itemsize: int, sms: int) -> dict:
+    """The tiling of ``dw_spatial_dw_kernel`` for ``n`` frames of x (h, wd, c)
+    and their dy.
+
+    A unit is ``cols`` adjacent outputs of one row: 2 at stride 2, 4 at
+    stride 1 unless a frame then has fewer than 16 units. The (frame, band)
+    items, a band being ``band`` output rows of one frame, are cut into runs
+    of ``per_block`` consecutive items; a block owns one run, 8 channel
+    vectors of 16 bytes and ``col_tile`` output columns, and writes one
+    partial sum (a slab of the workspace) at its end. The runs are as many as
+    fill ``_DW_BLOCKS_PER_SM`` blocks on every SM in one wave beside the
+    channel and column tiles. For each band the block stages the x rows it
+    reads (``stride * (band - 1) + k``, of which the next band of the same
+    frame keeps ``k - stride``) in a ring of ``ring`` rows of ``stride *
+    (col_tile - 1) + k`` columns, and the band's dy rows in one of two slots,
+    in shared memory; the lanes' partial sums reuse it at the end. The column
+    tile and the band are fitted as the forward's are (``_fit_tiles``), to
+    2 blocks an SM. The kernel takes ``band``, ``col_tile``, ``cols``,
+    ``per_block``, ``slabs`` and ``smem_bytes`` and derives the rest.
+    """
+    vec = 16 // itemsize
+    rows, out_cols = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
+    cols = 4 if stride == 1 and rows * _cdiv(out_cols, 4) >= _DW_W4_UNITS else 2
+    tap_groups = _DW_TAP_GROUPS[k]
+    lanes = 32 // tap_groups
+    channel_tiles = _cdiv(_cdiv(c, vec), _DW_TILE_VECS)
+    part_bytes = lanes * k * k * _DW_TILE_VECS * vec * 4
+
+    def tiling(col_tile: int, band: int) -> dict:
+        bands, col_tiles = _cdiv(rows, band), _cdiv(out_cols, col_tile)
+        items = n * bands
+        runs = max(1, min(items, _DW_BLOCKS_PER_SM * sms // (channel_tiles * col_tiles)))
+        per_block = max(1, _cdiv(items, runs))
+        blocks = _cdiv(items, per_block)
+        frame_rows = stride * (band - 1) + k
+        ring = 2 * frame_rows  # a band, and the next one's new rows (a new frame's all)
+        tile_cols = stride * (col_tile - 1) + k
+        return {
+            "cols": cols,
+            "band": band,
+            "col_tile": col_tile,
+            "tap_groups": tap_groups,
+            "lanes": lanes,
+            "bands": bands,
+            "items": items,
+            "per_block": per_block,
+            "frame_rows": frame_rows,
+            "ring": ring,
+            "tile_cols": tile_cols,
+            "grid": (blocks, channel_tiles, col_tiles),
+            "slabs": blocks * col_tiles,
+            "smem_bytes": max((ring * tile_cols + 2 * band * col_tile) * _DW_TILE_VECS * 16, part_bytes),
+        }
+
+    return _fit_tiles(rows, out_cols, cols, _DW_UNITS, _DW_MAX_COL_TILE, _DW_SMEM_BUDGET, tiling)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -483,20 +565,30 @@ def _check_grad_w(name: str, x: torch.Tensor, dy: torch.Tensor, k: int, position
 
 
 def dw_spatial_dw(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """dL/dw of ``dw_spatial_fwd``, (k, k, C) fp32; CUDA kernel (two
-    deterministic passes), or the plain version on CPU."""
+    """dL/dw of ``dw_spatial_fwd``, (k, k, C) fp32; CUDA kernel (partial sums
+    per block, then a fixed-order sum of them), or the plain version on CPU."""
     b, t, h, wd, c = x.shape
-    if dy.shape != (b, t, spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride), c):
+    oh, ow = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
+    if dy.shape != (b, t, oh, ow, c):
         raise ValueError(f"dw_spatial_dw: dy {tuple(dy.shape)} is not the output of x {tuple(x.shape)}")
     if _on_cpu(x, dy):
         return dw_spatial_dw_plain(x, dy, k, stride)
-    positions = dy.numel() // c
-    _check_grad_w("dw_spatial_dw", x, dy, k, positions)
-    slabs = _slabs(x.device, c, positions)
-    workspace = torch.empty((slabs, k * k, c), dtype=torch.float32, device=x.device)
+    _check_cuda_operands("dw_spatial_dw", x=x, dy=dy)
+    if k not in _COMPILED_KS:
+        raise NotImplementedError(f"dw_spatial_dw: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
+    if stride not in (1, 2):
+        raise NotImplementedError(f"dw_spatial_dw: stride {stride} not supported (1 or 2)")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    geo = dw_launch_geometry(b * t, h, wd, c, k, stride, x.element_size(), sms)
+    if (h * wd * c > _INT32_MAX or oh * ow * c > _INT32_MAX or geo["items"] > _INT32_MAX
+            or (geo["per_block"] + 1) * geo["frame_rows"] > _INT32_MAX or geo["slabs"] * k * k * c > _INT32_MAX
+            or any(g > m for g, m in zip(geo["grid"], _MAX_GRID)) or geo["smem_bytes"] > _MAX_SMEM_BYTES):
+        raise ValueError(f"dw_spatial_dw: shape {tuple(x.shape)} exceeds the kernel's grid")
+    workspace = torch.empty((geo["slabs"], k * k, c), dtype=torch.float32, device=x.device)
     dw = torch.empty((k, k, c), dtype=torch.float32, device=x.device)
     _launch("dw_spatial_dw", x.dtype, x.device, x.data_ptr(), dy.data_ptr(), workspace.data_ptr(), dw.data_ptr(),
-            b * t, h, wd, c, k, stride, slabs)
+            b * t, h, wd, c, k, stride, geo["band"], geo["col_tile"], geo["cols"], geo["per_block"], geo["slabs"],
+            geo["smem_bytes"])
     return dw
 
 

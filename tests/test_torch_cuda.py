@@ -264,6 +264,80 @@ def test_dx_kernel_refuses_other_kernel_sizes_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "hw, c, k, stride",
+    [(hw, 24, k, s) for hw in ((33, 17), (7, 5)) for k in (3, 5) for s in (1, 2)]
+    + [(hw, c, 3, s) for hw, c in (((2, 70), 24), ((70, 3), 24), ((1, 1), 24), ((9, 11), 20), ((9, 11), 22),
+                                   ((10, 12), 264)) for s in (1, 2)],
+)
+def test_dw_kernel_matches_plain_at_tile_edges(cuda, hw, c, k, stride, dtype):
+    """The edges of dw_spatial_dw's tiling: H and W that are not multiples of
+    its bands and column tiles, frames wider or taller than one tile, a 1x1
+    frame, a channel tail (c=20 in bf16, c=22 in both: element-by-element
+    copies), k = 5 at both strides (tap-row groups), and C wider than one tile
+    of 8 channel vectors (c=264). Held as test_backward_kernels_match_plain
+    holds dw."""
+    rng = np.random.default_rng(24)
+    x = rand(rng, 2, 3, *hw, c).to(cuda, dtype)
+    oh, ow = (dw_kernels.spatial_out_size(s, k, stride) for s in hw)
+    dy = rand(rng, 2, 3, oh, ow, c).to(cuda, dtype)
+    before = dw_kernels.LAUNCHES["dw_spatial_dw"]
+    dw = dw_kernels.dw_spatial_dw(x, dy, k, stride)
+    torch.cuda.synchronize()
+    assert dw_kernels.LAUNCHES["dw_spatial_dw"] == before + 1
+    assert dw.dtype == torch.float32 and dw.shape == (k, k, c)
+    ref = dw_kernels.dw_spatial_dw_plain(x.double(), dy.double(), k, stride)
+    assert (dw.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw, c, k, stride", [((7, 5), 24, 3, 1), ((4, 4), 22, 3, 2), ((1, 1), 8, 5, 1)])
+def test_dw_kernel_matches_plain_when_blocks_walk_frames(cuda, hw, c, k, stride, dtype):
+    """8192 small frames: each block walks a run of many frames, staging the
+    next one while it computes this one (the last run is shorter when the
+    count does not divide). Held as test_backward_kernels_match_plain holds dw."""
+    rng = np.random.default_rng(25)
+    x = rand(rng, 64, 128, *hw, c).to(cuda, dtype)
+    oh, ow = (dw_kernels.spatial_out_size(s, k, stride) for s in hw)
+    dy = rand(rng, 64, 128, oh, ow, c).to(cuda, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    geo = dw_kernels.dw_launch_geometry(64 * 128, *hw, c, k, stride, x.element_size(), sms)
+    assert geo["per_block"] > geo["bands"]
+    dw = dw_kernels.dw_spatial_dw(x, dy, k, stride)
+    ref = dw_kernels.dw_spatial_dw_plain(x.double(), dy.double(), k, stride)
+    assert (dw.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dw_kernel_is_the_same_from_run_to_run(cuda, stride):
+    """At a flagship width (448 channels, a 32x32 frame of block 1 or 64x64 of
+    block 0), three reruns are bitwise equal: fixed-order sums, no atomics."""
+    rng = np.random.default_rng(26)
+    h = 32 * stride
+    oh = dw_kernels.spatial_out_size(h, 3, stride)
+    x = rand(rng, 2, 8, h, h, 448).to(cuda, torch.bfloat16)
+    dy = rand(rng, 2, 8, oh, oh, 448).to(cuda, torch.bfloat16)
+    first = dw_kernels.dw_spatial_dw(x, dy, 3, stride)
+    assert all(torch.equal(first, dw_kernels.dw_spatial_dw(x, dy, 3, stride)) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_dw_kernel_refuses_other_kernel_sizes_on_the_card(cuda):
+    """k = 7 is not compiled: the wrapper raises before launching on the card,
+    while the CPU path still answers through the plain version."""
+    rng = np.random.default_rng(27)
+    x, dy = rand(rng, 1, 2, 6, 7, 8), rand(rng, 1, 2, 6, 7, 8)
+    before = dw_kernels.LAUNCHES["dw_spatial_dw"]
+    with pytest.raises(NotImplementedError, match="k=7"):
+        dw_kernels.dw_spatial_dw(x.to(cuda), dy.to(cuda), 7, 1)
+    assert dw_kernels.LAUNCHES["dw_spatial_dw"] == before
+    assert dw_kernels.dw_spatial_dw(x, dy, 7, 1).shape == (7, 7, 8)
+
+
+@pytest.mark.cuda
 def test_weight_gradients_are_the_same_from_run_to_run(cuda):
     rng = np.random.default_rng(13)
     x = rand(rng, 4, 8, 32, 32, 64).to(cuda, torch.bfloat16)

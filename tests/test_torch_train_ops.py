@@ -359,3 +359,176 @@ def test_backward_wrappers_never_fall_back_off_the_cpu():
                  lambda: dw_kernels.dw_temporal_dw(x, x, 3)):
         with pytest.raises(RuntimeError, match="CUDA tensors"):
             call()
+
+
+# (n, h, w, c, k, stride) of dw_spatial_dw: the flagship step's 6 shapes, then
+# the edges of its tiling: H and W that are not multiples of the bands and
+# column tiles, frames wider or taller than one tile, a 1x1 frame, channel
+# tails, C wider than one channel tile; last, many small frames, so that a
+# block walks several.
+FLAGSHIP_DW = FLAGSHIP_DX
+EDGE_DW = ([(3, h, w, 24, k, s) for h, w in ((9, 11), (33, 17), (7, 5)) for k in (3, 5) for s in (1, 2)]
+           + [(3, h, w, c, 3, s) for h, w, c in ((2, 70, 24), (70, 3, 24), (1, 1, 24), (9, 11, 20), (9, 11, 22),
+                                                 (10, 12, 264)) for s in (1, 2)])
+WALK_DW = [(99, 7, 5, 24, 3, 1), (99, 4, 4, 22, 3, 2), (50, 1, 1, 8, 5, 1), (40, 6, 9, 16, 5, 2)]
+
+
+def dw_blocks(geo: dict):
+    """Every block as the kernel walks it: (slab, channel tile, column tile,
+    and its (frame, first output row) items in order)."""
+    gx, gy, gz = geo["grid"]
+    bands, band, per_block = geo["bands"], geo["band"], geo["per_block"]
+    for tz in range(gz):
+        for bx in range(gx):
+            items = range(bx * per_block, min((bx + 1) * per_block, geo["items"]))
+            for ty in range(gy):
+                yield bx + gx * tz, ty, tz, [(it // bands, it % bands * band) for it in items]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", FLAGSHIP_DW + EDGE_DW + WALK_DW, ids=str)
+def test_dw_launch_geometry_fits_the_card_and_covers_dy_once(shape, itemsize):
+    """What ``dw_spatial_dw`` passes to its kernel, on a card of 132 SMs:
+    shared memory within the 232,448 bytes a block may use (and within half
+    an SM's, less 1 KB per block, at the flagship shapes, for the 2 blocks an
+    SM its registers are capped for), a grid within CUDA's limits that fills
+    every SM in one wave of at most 2 blocks each at the flagship shapes, a
+    ring that holds a band's x rows while the next bands' arrive, room for
+    the lanes' partial sums, and runs of items that take every dy position
+    exactly once."""
+    n, h, w, c, k, s = shape
+    geo = dw_kernels.dw_launch_geometry(n, h, w, c, k, s, itemsize, sms=132)
+    assert geo["smem_bytes"] <= 232_448
+    gx, gy, gz = geo["grid"]
+    assert 1 <= gx <= 2**31 - 1 and 1 <= gy <= 65535 and 1 <= gz <= 65535
+    if shape in FLAGSHIP_DW:
+        assert geo["smem_bytes"] <= 233_472 // 2 - 1024
+        assert 132 <= gx * gy * gz <= 2 * 132
+    band, cols, vec = geo["band"], geo["cols"], 16 // itemsize
+    oh, ow = (dw_kernels.spatial_out_size(size, k, s) for size in (h, w))
+    assert cols in ((2, 4) if s == 1 else (2,)) and geo["col_tile"] % cols == 0
+    frame_rows = s * (band - 1) + k
+    assert geo["frame_rows"] == frame_rows and geo["ring"] >= frame_rows + max(s * band, frame_rows)
+    assert geo["tile_cols"] == s * (geo["col_tile"] - 1) + k
+    assert geo["tap_groups"] * geo["lanes"] <= 32 and k % geo["tap_groups"] == 0
+    ring_bytes = (geo["ring"] * geo["tile_cols"] + 2 * band * geo["col_tile"]) * 8 * 16
+    assert geo["smem_bytes"] == max(ring_bytes, geo["lanes"] * k * k * 8 * vec * 4)
+    assert (gy - 1) * 8 < -(-c // vec) <= gy * 8  # vectors past C in the last channel tile are masked
+    assert geo["slabs"] == gx * gz and (gx - 1) * geo["per_block"] < geo["items"] == n * geo["bands"]
+    count = np.zeros((n, oh, ow), np.int32)
+    for _, ty, tz, items in dw_blocks(geo):
+        if ty > 0:
+            continue
+        for f, r0 in items:
+            c0 = tz * geo["col_tile"]
+            count[f, r0 : r0 + band, c0 : c0 + geo["col_tile"]] += 1
+    assert (count == 1).all()
+
+
+def emulate_dw_kernel(x: np.ndarray, dy: np.ndarray, k: int, stride: int, geo: dict, vec: int) -> np.ndarray:
+    """``dw_spatial_dw_kernel``'s loops in numpy, then ``sum_slabs``: each
+    block stages its run of items, x rows into a ring of
+    ``geo["ring"]`` slots (row r0 + i of an item in slot (vfirst + i) %
+    ring, vfirst growing by stride * band within a frame and by the band's
+    rows at a new frame, which stages all of them) and dy rows into slot j %
+    2, one item ahead; zeros outside x, dy and C. Every copy lands as soon as
+    it is issued, so the next item's rows overwrite their slots before this
+    item computes.
+    Each lane of a tap-row group takes its units in turn and adds, per tap
+    row, x[s*o + dj] * dy[o] over the unit's ``cols`` outputs; the block adds
+    its lanes in order into its slab, and the slabs are added in order. Slots
+    never staged hold NaN, so reading one shows."""
+    n, h, wd, c = x.shape
+    p, s = k // 2, stride
+    oh, ow = dy.shape[1], dy.shape[2]
+    cols, band, col_tile, ring_rows, tile_cols, frame_rows = (
+        geo[key] for key in ("cols", "band", "col_tile", "ring", "tile_cols", "frame_rows"))
+    groups, lanes = geo["tap_groups"], geo["lanes"]
+    rows_per_group = k // groups
+    chans = 8 * vec
+    ws = np.full((geo["slabs"], k * k, c), np.nan, np.float32)
+    for slab, ty, tz, items in dw_blocks(geo):
+        ch0, col0 = ty * chans, tz * col_tile
+        ring = np.full((ring_rows, tile_cols, chans), np.nan, np.float32)
+        dy_slots = np.full((2, band, col_tile, chans), np.nan, np.float32)
+
+        def stage(j, vfirst, fresh):
+            f, s0 = items[j]
+            r0 = s0 * s - p
+            for r in range(r0 if fresh else r0 + frame_rows - s * band, r0 + frame_rows):
+                for cc in range(tile_cols):
+                    col = col0 * s - p + cc
+                    tile = np.zeros(chans, np.float32)
+                    if 0 <= r < h and 0 <= col < wd:
+                        part = x[f, r, col, ch0 : ch0 + chans]
+                        tile[: part.shape[0]] = part
+                    ring[(vfirst + r - r0) % ring_rows, cc] = tile
+            for rr in range(band):
+                for cc in range(col_tile):
+                    tile = np.zeros(chans, np.float32)
+                    if s0 + rr < oh and col0 + cc < ow:
+                        part = dy[f, s0 + rr, col0 + cc, ch0 : ch0 + chans]
+                        tile[: part.shape[0]] = part
+                    dy_slots[j % 2, rr, cc] = tile
+
+        acc = np.zeros((lanes, k, k, chans), np.float32)  # per lane: every tap row of its groups
+        step = [0] + [frame_rows if s0 == 0 else s * band for _, s0 in items[1:]]  # vfirst(j) - vfirst(j - 1)
+        vfirsts = np.cumsum(step)
+        stage(0, 0, True)
+        units_per_row = col_tile // cols
+        for j, (f, s0) in enumerate(items):
+            vfirst = vfirsts[j]
+            if j + 1 < len(items):
+                stage(j + 1, vfirsts[j + 1], items[j + 1][1] == 0)
+            for u in range(min(band, oh - s0) * units_per_row):
+                rs, cu = divmod(u, units_per_row)
+                if col0 + cu * cols >= ow:
+                    continue
+                lane = u % lanes
+                for group in range(groups):
+                    for di in range(group * rows_per_group, (group + 1) * rows_per_group):
+                        row = ring[(vfirst + rs * s + di) % ring_rows, cu * cols * s :]
+                        for o in range(cols):
+                            d = dy_slots[j % 2, rs, cu * cols + o]
+                            for dj in range(k):
+                                acc[lane, di, dj] += row[s * o + dj] * d
+        total = np.zeros((k, k, chans), np.float32)
+        for lane in range(lanes):
+            total += acc[lane]
+        width = min(chans, c - ch0)
+        ws[slab, :, ch0 : ch0 + width] = total.reshape(k * k, chans)[:, :width]
+    out = np.zeros((k * k, c), np.float32)
+    for slab in range(geo["slabs"]):
+        out += ws[slab]
+    return out.reshape(k, k, c)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", EDGE_DW + WALK_DW, ids=str)
+def test_dw_kernel_loops_emulated_match_the_plain_version(shape, itemsize, sms):
+    """The kernel's runs of items, ring slots across bands and frames, dy
+    slots, zero halo, register window, tap-row groups, channel tail, per-lane
+    partials and the fixed-order slab sum, emulated in numpy from
+    ``dw_launch_geometry``, give ``dw_spatial_dw_plain``. One SM makes each
+    block walk many bands and frames; 132 SMs give most blocks one item."""
+    n, h, w, c, k, s = shape
+    rng = np.random.default_rng(36)
+    oh, ow = (dw_kernels.spatial_out_size(size, k, s) for size in (h, w))
+    x, dy = rand(rng, n, h, w, c), rand(rng, n, oh, ow, c)
+    geo = dw_kernels.dw_launch_geometry(n, h, w, c, k, s, itemsize, sms=sms)
+    got = emulate_dw_kernel(x, dy, k, s, geo, 16 // itemsize)
+    ref = dw_kernels.dw_spatial_dw_plain(torch.from_numpy(x)[None], torch.from_numpy(dy)[None], k, s).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
+
+
+def test_dw_spatial_dw_plain_serves_any_odd_k_on_the_cpu():
+    """The kernel is compiled for k = 3 and 5; on the CPU the plain version
+    answers for any odd k (k = 7 here), as the JAX function does."""
+    rng = np.random.default_rng(37)
+    x, w, dy = rand(rng, 1, 2, 6, 7, 8), rand(rng, 7, 7, 8), rand(rng, 1, 2, 6, 7, 8)
+    dw = dw_kernels.dw_spatial_dw(torch.from_numpy(x), torch.from_numpy(dy), 7, 1)
+    torch.testing.assert_close(dw, dw_kernels.dw_spatial_dw_plain(torch.from_numpy(x), torch.from_numpy(dy), 7, 1),
+                               rtol=0, atol=0)
+    _, jdw = jax_spatial_vjp(pallas_dw.dw_spatial, x, w, dy, 1)
+    np.testing.assert_allclose(dw.numpy(), jdw, atol=1e-4)
