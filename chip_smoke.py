@@ -24,7 +24,9 @@ Phases, each of which passes or makes the script exit non-zero:
    of its tiles, frames wider or taller than one column tile, a 1x1 frame,
    channel tails (C not a multiple of 8 in bf16 or of 4 in fp32), k = 5 at
    both strides, C wider than one channel tile, and 8192 small frames, so
-   that each block walks several;
+   that each block walks several. The temporal cases add the edges of the
+   column walk: k = 3 and 5, T below k (1, 2) and not a multiple of the frame
+   tile (37), channel tails and C wider than one channel tile;
 4. slice: the flagship DwiseNeuro (``configs/true_batch_001.py``, seeded
    random weights, bf16) serves 3 requests through ``Predictor(chunk_size=32)``:
    300-frame trials of 36x64 video, mouse 0. Each answer must be a finite,
@@ -47,7 +49,9 @@ Phases, each of which passes or makes the script exit non-zero:
    wrong: H and W that are not multiples of their tiles, a channel tail (C
    not a multiple of 8 in bf16 or of 4 in fp32), k = 5 at both strides, and
    C wider than one channel tile; dw also a 1x1 frame and 8192 small frames,
-   so that each block walks many;
+   so that each block walks many. ``dw_temporal_dw`` adds the forward's
+   temporal edge cases, and each of its calls is run twice and must give
+   bitwise equal results;
 7. train: the flagship ``MouseModel`` (the config's mice_poisson loss and
    AdamW, lr 2.4e-3 held constant, weight decay 0.05, EMA 0.999, seeded
    random weights) takes 2 warm-up and 10 timed steps on one synthetic batch
@@ -301,6 +305,20 @@ def flagship_kernel_shapes() -> list[dict]:
     return shapes
 
 
+def temporal_edge_cases(kernel: str) -> list[dict]:
+    """The edges of the temporal kernels' column walk: k = 5 at a ragged frame,
+    T below k (1, 2) and not a multiple of the frame tile (37) at both k,
+    channel tails (C not a multiple of 8 in bf16 or of 4 in fp32) and C wider
+    than one channel tile."""
+    cases = [{"kernel": kernel, "hw": (9, 11), "c": 24, "k": 5, "blocks": [], "batch": (2, 7)}]
+    for k in (3, 5):
+        for t in (1, 2, 37):
+            cases.append({"kernel": kernel, "hw": (9, 11), "c": 24, "k": k, "blocks": [], "batch": (2, t)})
+        for hw, c in (((9, 11), 20), ((9, 11), 22), ((10, 12), 264)):
+            cases.append({"kernel": kernel, "hw": hw, "c": c, "k": k, "blocks": [], "batch": (2, 7)})
+    return cases
+
+
 def check_kernels(peaks: tuple[float, float]) -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -315,6 +333,7 @@ def check_kernels(peaks: tuple[float, float]) -> list[dict]:
             cases.append({"kernel": "dw_spatial_fwd", "hw": (9, 11), "c": 24, "stride": stride, "k": k,
                           "blocks": [], "batch": (2, 3)})
     cases.append({"kernel": "dw_temporal_fwd", "hw": (9, 11), "c": 24, "k": 3, "blocks": [], "batch": (2, 7)})
+    cases += temporal_edge_cases("dw_temporal_fwd")
     # The spatial forward's tile edges: sizes that are not multiples of its
     # tiles, frames wider or taller than one column tile, a 1x1 frame, channel
     # tails, C wider than one channel tile.
@@ -582,6 +601,7 @@ def backward_cases() -> list[dict]:
                     cases.append({"kernel": kernel, "hw": hw, "c": 24, "stride": stride, "k": k, "blocks": [],
                                   "batch": (2, 3)})
             cases.append({"kernel": "dw_temporal_dw", "hw": hw, "c": 24, "k": k, "blocks": [], "batch": (2, 3)})
+    cases += temporal_edge_cases("dw_temporal_dw")
     # dx and dw: sizes that are not multiples of the tiles, channel tails, C
     # wider than a channel tile; dw also a 1x1 frame.
     for hw, c, ks in (((33, 17), 24, (3, 5)), ((7, 5), 24, (3, 5)), ((9, 11), 20, (3,)), ((9, 11), 22, (3,)),
@@ -672,6 +692,9 @@ def check_backward_kernels(peaks: tuple[float, float]) -> list[dict]:
                 ok = bool(err.max() <= DW_REL_TOL * ref.abs().max() + DW_REL_TOL)
                 out_bytes = y.numel() * 4
                 in_bytes = (x.numel() + dy.numel()) * x.element_size()
+            if name == "dw_temporal_dw":  # fixed-order sums: a rerun is bitwise equal
+                rerun_equal = torch.equal(y, run())
+                ok = ok and rerun_equal
             row = {
                 "kernel": name,
                 "dtype": str(dtype).replace("torch.", ""),
@@ -684,6 +707,8 @@ def check_backward_kernels(peaks: tuple[float, float]) -> list[dict]:
                 "library2d_max_abs_err": lib2d_err,
                 "ok": ok,
             }
+            if name == "dw_temporal_dw":
+                row["rerun_bitwise_equal"] = rerun_equal
             del err, ref
             nbytes = in_bytes + out_bytes
             ops = 2 * taps * dy.numel()

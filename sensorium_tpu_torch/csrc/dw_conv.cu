@@ -3,13 +3,16 @@
 // Replaces the Pallas TPU kernels of sensorium_tpu/ops/pallas_dw.py:
 //   dw_spatial_fwd  <- _dw_spatial_fwd (stride 1: _dw_spatial_kernel; stride 2:
 //                      _dw_spatial_s2_kernel on the _parity_split planes)
-//   dw_temporal_fwd <- _dw_temporal_fwd (_dw_temporal_kernel)
+//   dw_temporal_fwd <- _dw_temporal_fwd (_dw_temporal_kernel); with the taps
+//                      reversed it is also the temporal input gradient
+//                      (_dw_temporal_vjp_bwd)
 //
 // Layout is channels-last, as in the JAX package:
 //   spatial:  x (N = B*T, H, W, C), w (k, k, C)  -> y (N, OH, OW, C)
 //             y[n,oh,ow,c] = sum_{di,dj} w[di,dj,c] * x[n, s*oh+di-p, s*ow+dj-p, c],
 //             p = k/2, zero padding, OH = (H + 2p - k) / s + 1
-//   temporal: x (B, T, L = H*W*C), w (k, C)      -> y (B, T, L), padding k/2, odd k
+//   temporal: x (B, T, HW = H*W, C), w (k, C)    -> y (B, T, HW, C)
+//             y[b,t,p,c] = sum_dt w[dt,c] * x[b, t+dt-k/2, p, c], zero padding, odd k
 //
 // What bounds them: bytes. Each reads x once and writes y once; the work is
 // k*k (spatial) or k (temporal) multiply-adds per output element, far below
@@ -63,9 +66,36 @@
 //    (or a pointer is not 16-byte aligned) the same kernel stages and stores
 //    element by element.
 //
+// Design of dw_temporal_fwd_walk<T, K, F>, a column walk:
+//  - A thread owns one 16-byte vector of channels (8 bf16 or 4 fp32) of one
+//    (b, hw) column and walks the column's T frames; neighbouring threads own
+//    neighbouring vectors of one pixel, then neighbouring pixels, so a warp
+//    reads and writes 512 contiguous bytes of each frame. The grid covers
+//    B*HW*ceil(C/vec) threads, 256 a block.
+//  - Each x vector is read from DRAM once: it enters a register window of the
+//    K frames t-P .. t+P, converted to fp32 once, and leaves it K frames
+//    later; each y vector is written once, with one 16-byte store. The K
+//    weight vectors are converted to fp32 registers once.
+//  - Loads in flight: the frames are taken in tiles of F (a template
+//    parameter): the F loads of a tile are started together, then its F
+//    outputs computed, so a warp has F loads in flight, not one dependent
+//    load a frame.
+//  - k is a template parameter (3 or 5), so the tap loop unrolls; it holds no
+//    modulo and no bounds check. The column's ends are the walk's: the window
+//    starts with zeros for the frames before 0, and frames from T on load as
+//    zeros. Where C is not a multiple of the vector width (or a pointer is not
+//    16-byte aligned) the same kernel loads and stores element by element.
+//  - One 64-bit column base, 32-bit offsets along T; fp32 accumulation in the
+//    plain version's tap order, rounded once to x's type; reruns are bitwise
+//    equal. The frame tile comes from the wrapper (ops/dw_kernels.py
+//    temporal_launch_geometry), which the launcher refuses unless compiled.
+//  Bound: bytes. x and y are moved once (block 0-3's calls of a batch of 32 x
+//  16 frames: 0.94 GB in bf16, >= 0.28 ms at 3.35 TB/s), with k
+//  multiply-adds per output element.
+//
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing and returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a kernel size, stride or tiling the spatial kernel is not compiled for.
+// for a kernel size, stride or tiling the kernels are not compiled for.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -74,8 +104,6 @@
 #include "dw_vec.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------- dw_spatial_fwd
 
@@ -242,29 +270,75 @@ dw_spatial_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __res
   }
 }
 
-// One thread per (b, l) column of the flat (B, T, L) view; it walks the T
-// output frames, reading its k taps from frames t - k/2 .. t + k/2. The taps
-// a thread read for frame t are read again for t + 1, from L1.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dw_temporal_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                       int64_t batch, int t_len, int64_t l_len, int c, int k) {
-  const int64_t l = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (l >= l_len) return;
-  const int ch = static_cast<int>(l % c);
-  const int pad = k / 2;
-  for (int64_t b = blockIdx.y; b < batch; b += gridDim.y) {
-    const T* xb = x + b * t_len * l_len + l;
-    T* yb = y + b * t_len * l_len + l;
-    for (int t = 0; t < t_len; ++t) {
-      float acc = 0.0f;
-      for (int dt = 0; dt < k; ++dt) {
-        const int ti = t + dt - pad;
-        if (ti < 0 || ti >= t_len) continue;
-        acc = fmaf(to_float(xb[static_cast<int64_t>(ti) * l_len]), to_float(w[dt * c + ch]), acc);
+// ---------------------------------------------------------------- dw_temporal_fwd
+
+constexpr int kTemporalThreads = 256;  // one channel vector of one column a thread
+
+// The launch geometry of dw_temporal_fwd_walk (ops/dw_kernels.py temporal_launch_geometry).
+struct TemporalGeometry {
+  int t_len;    // frames
+  int hw;       // pixels a frame
+  int c;
+  int cvecs;    // channel vectors a pixel: ceil(c / vec)
+  int frame;    // elements a frame: hw * c
+  int threads;  // b * hw * cvecs
+  int vec;      // 1: 16-byte loads and stores; 0: element by element
+};
+
+template <typename T, int K, int F, bool VEC>
+__device__ __forceinline__ void temporal_fwd_column(const T* __restrict__ xc, const T* __restrict__ wc,
+                                                    T* __restrict__ yc, const TemporalGeometry& g, int valid) {
+  using V = Vec16<T>;
+  constexpr int kVec = V::kN;
+  constexpr int kP = K / 2;
+  float wf[K][kVec];
+#pragma unroll
+  for (int dt = 0; dt < K; ++dt) V::unpack(wf[dt], load_vec<T, VEC>(wc + dt * g.c, valid));
+  float win[K - 1][kVec];  // frames t-P .. t+P-1 of output frame t
+  start_window<T, K, VEC>(win, xc, g.t_len, g.frame, valid);
+  for (int t0 = 0; t0 < g.t_len; t0 += F) {
+    uint4 raw[F];  // frames t0+P .. t0+P+F-1, loaded together
+#pragma unroll
+    for (int j = 0; j < F; ++j) raw[j] = load_frame<T, VEC>(xc, t0 + kP + j, g.t_len, g.frame, valid);
+#pragma unroll
+    for (int o = 0; o < F; ++o) {
+      if (t0 + o >= g.t_len) break;
+      float xn[kVec];
+      V::unpack(xn, raw[o]);
+      float acc[kVec];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[i] = 0.0f;
+#pragma unroll
+      for (int dt = 0; dt < K - 1; ++dt) {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[i] = fmaf(win[dt][i], wf[dt][i], acc[i]);
       }
-      yb[static_cast<int64_t>(t) * l_len] = from_float<T>(acc);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[i] = fmaf(xn[i], wf[K - 1][i], acc[i]);
+      store_vec<T, VEC>(yc + (t0 + o) * g.frame, acc, valid);
+      slide_window<K>(win, xn);
     }
+  }
+}
+
+// Thread id = (b * hw + pixel) * cvecs + channel vector. Registers are capped
+// for 2 blocks an SM: 16 warps, each with F 16-byte loads in flight.
+template <typename T, int K, int F>
+__global__ void __launch_bounds__(kTemporalThreads, 2)
+dw_temporal_fwd_walk(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, const TemporalGeometry g) {
+  constexpr int kVec = Vec16<T>::kN;
+  const int id = blockIdx.x * kTemporalThreads + threadIdx.x;
+  if (id >= g.threads) return;
+  const int column = id / g.cvecs;
+  const int ch = (id - column * g.cvecs) * kVec;
+  const int b = column / g.hw;
+  const int64_t base = static_cast<int64_t>(b) * g.t_len * g.frame +
+                       static_cast<int64_t>(column - b * g.hw) * g.c + ch;
+  const int valid = min(kVec, g.c - ch);
+  if (g.vec) {
+    temporal_fwd_column<T, K, F, true>(x + base, w + ch, y + base, g, valid);
+  } else {
+    temporal_fwd_column<T, K, F, false>(x + base, w + ch, y + base, g, valid);
   }
 }
 
@@ -344,15 +418,31 @@ int launch_spatial(const void* x, const void* w, void* y, int64_t n, int64_t h, 
                 : dispatch_spatial_fwd<T, 5>(xp, wp, yp, g, st, cl, grid, smem, s);
 }
 
+// frame_tile comes from the wrapper; the rest of the geometry follows here.
 template <typename T>
-int launch_temporal(const void* x, const void* w, void* y, int64_t batch, int64_t t_len,
-                    int64_t l_len, int64_t c, int64_t k, void* stream) {
-  if (batch > 0 && t_len > 0 && l_len > 0) {
-    const dim3 grid(static_cast<unsigned int>((l_len + kThreads - 1) / kThreads),
-                    static_cast<unsigned int>(batch < 65535 ? batch : 65535));
-    dw_temporal_fwd_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), batch,
-        static_cast<int>(t_len), l_len, static_cast<int>(c), static_cast<int>(k));
+int launch_temporal(const void* x, const void* w, void* y, int64_t batch, int64_t t_len, int64_t hw, int64_t c,
+                    int64_t k, int64_t frame_tile, void* stream) {
+  constexpr int kVec = Vec16<T>::kN;
+  if ((k != 3 && k != 5) || frame_tile != kTemporalFrameTile) return static_cast<int>(cudaErrorInvalidValue);
+  TemporalGeometry g;
+  g.t_len = static_cast<int>(t_len);
+  g.hw = static_cast<int>(hw);
+  g.c = static_cast<int>(c);
+  g.cvecs = static_cast<int>((c + kVec - 1) / kVec);
+  g.frame = static_cast<int>(hw * c);
+  g.threads = static_cast<int>(batch * hw * g.cvecs);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  g.vec = c % kVec == 0 && aligned(x) && aligned(w) && aligned(y);
+  if (g.threads == 0 || t_len == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(static_cast<unsigned int>((g.threads + kTemporalThreads - 1) / kTemporalThreads));
+  const auto* xp = static_cast<const T*>(x);
+  const auto* wp = static_cast<const T*>(w);
+  auto* yp = static_cast<T*>(y);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (k == 3) {
+    dw_temporal_fwd_walk<T, 3, kTemporalFrameTile><<<grid, kTemporalThreads, 0, s>>>(xp, wp, yp, g);
+  } else {
+    dw_temporal_fwd_walk<T, 5, kTemporalFrameTile><<<grid, kTemporalThreads, 0, s>>>(xp, wp, yp, g);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -375,14 +465,14 @@ int dw_spatial_fwd_bf16(const void* x, const void* w, void* y, int64_t n, int64_
                                        bands_per_block, smem_bytes, stream);
 }
 
-int dw_temporal_fwd_f32(const void* x, const void* w, void* y, int64_t batch, int64_t t_len,
-                        int64_t l_len, int64_t c, int64_t k, void* stream) {
-  return launch_temporal<float>(x, w, y, batch, t_len, l_len, c, k, stream);
+int dw_temporal_fwd_f32(const void* x, const void* w, void* y, int64_t batch, int64_t t_len, int64_t hw,
+                        int64_t c, int64_t k, int64_t frame_tile, void* stream) {
+  return launch_temporal<float>(x, w, y, batch, t_len, hw, c, k, frame_tile, stream);
 }
 
-int dw_temporal_fwd_bf16(const void* x, const void* w, void* y, int64_t batch, int64_t t_len,
-                         int64_t l_len, int64_t c, int64_t k, void* stream) {
-  return launch_temporal<__nv_bfloat16>(x, w, y, batch, t_len, l_len, c, k, stream);
+int dw_temporal_fwd_bf16(const void* x, const void* w, void* y, int64_t batch, int64_t t_len, int64_t hw,
+                         int64_t c, int64_t k, int64_t frame_tile, void* stream) {
+  return launch_temporal<__nv_bfloat16>(x, w, y, batch, t_len, hw, c, k, frame_tile, stream);
 }
 
 }  // extern "C"

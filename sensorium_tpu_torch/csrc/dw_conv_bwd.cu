@@ -99,11 +99,35 @@
 //    same kernel stages element by element.
 // dw_temporal_dw replaces _dw_temporal_grad_w (_dw_temporal_dw_kernel):
 //   dw[dt,c] = sum over b, t, hw of x_pad[b, t+dt, hw, c] * dy[b,t,hw,c]
-// in two passes of the same kind: a block reduces one slab of positions for a
-// tile of 32 channels (a thread per channel keeps its k sums in registers,
-// then the block adds its 8 position lanes in a fixed order), and sum_slabs
-// adds the slabs. Bound: bytes, x and dy read once. The wrapper picks the slab
-// count so that every SM has several blocks.
+// in fp32, (k, C). Bound: bytes. It reads x and dy once (blocks 0-3 of a batch
+// of 32 x 16 frames: 0.94 GB in bf16, >= 0.28 ms at 3.35 TB/s; the 9 blocks of
+// a step >= 1.683 ms) and writes k*C floats, with k multiply-adds per dy
+// element. Two deterministic passes, as dw_spatial_dw: dw_temporal_dw_walk
+// writes one partial sum per block into a fp32 workspace (slabs, k, C), and
+// sum_slabs adds the slabs in a fixed order.
+// Design of dw_temporal_dw_walk<T, K, F>, the forward's column walk
+// (dw_conv.cu dw_temporal_fwd_walk) with sums in registers:
+//  - A thread owns one 16-byte vector of channels (8 bf16 or 4 fp32); a block
+//    owns 8 channel vectors and a run of per_block consecutive (b, hw)
+//    columns, which its 32 column lanes take in turn (lane l: columns l,
+//    l + 32, ...), so a warp reads 4 neighbouring pixels' 128 contiguous
+//    bytes of a frame. The runs are as many as fill 2 blocks on every SM in
+//    one wave beside the channel tiles.
+//  - A thread walks each of its columns' T frames: it reads each x and each dy
+//    vector once, keeps a register window of K x vectors in fp32 (frames
+//    t-P .. t+P), and adds x[t+dt-P] * dy[t] into K vectors of fp32 sums in
+//    registers (40 in bf16 at k = 5). Frames come in tiles of F whose 2F loads
+//    are started together. Zeros enter the window before frame 0 and from frame
+//    T on, so the tap loop has no bounds check; k is a template parameter.
+//  - At the end the block adds its 32 column lanes in a fixed order through
+//    shared memory and writes one slab of (K, 8 channel vectors). The tiling
+//    (frame tile, columns per run, slabs, shared-memory bytes) comes from the
+//    wrapper (ops/dw_kernels.py temporal_launch_geometry); the launcher
+//    derives the grid and refuses a slab count or shared-memory bytes that
+//    differ from its own.
+//  - One 64-bit column base, 32-bit offsets along T. Where C is not a multiple
+//    of the vector width (or a pointer is not 16-byte aligned) the same kernel
+//    loads element by element.
 //
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing (the caller passes dx, the workspace and dw) and returns
@@ -118,9 +142,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLanes = 32;  // channels per reduction block (threadIdx.x)
-constexpr int kRows = 8;    // position lanes per reduction block (threadIdx.y)
+constexpr int kThreads = 256;  // sum_slabs
 
 // ---------------------------------------------------------------- dw_spatial_dx
 
@@ -265,27 +287,6 @@ dw_spatial_dx_kernel(const T* __restrict__ dy, const T* __restrict__ w, T* __res
       }
     }
     __syncthreads();
-  }
-}
-
-// Adds the block's kRows position lanes in a fixed order and writes the
-// block's (taps, 32-channel tile) partial sums into workspace slab blockIdx.y.
-template <int kTaps>
-__device__ __forceinline__ void write_partials(const float (&acc)[kTaps], float* __restrict__ ws, int c) {
-  __shared__ float part[kRows][kTaps][kLanes];
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t) part[threadIdx.y][t][threadIdx.x] = acc[t];
-  __syncthreads();
-  const int tid = threadIdx.y * kLanes + threadIdx.x;
-  for (int e = tid; e < kTaps * kLanes; e += kLanes * kRows) {
-    const int t = e / kLanes;
-    const int lane = e % kLanes;
-    const int ch = blockIdx.x * kLanes + lane;
-    if (ch >= c) continue;
-    float s = 0.0f;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s += part[r][t][lane];
-    ws[(static_cast<int64_t>(blockIdx.y) * kTaps + t) * c + ch] = s;
   }
 }
 
@@ -480,32 +481,111 @@ dw_spatial_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* _
   }
 }
 
-// Pass 1 of dw_temporal_dw. Positions p = (b*T + t)*HW + hw.
-template <typename T, int K>
-__global__ void __launch_bounds__(kLanes * kRows)
-dw_temporal_dw_partial(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ ws,
-                       int t_len, int hw, int c, int positions, int per_slab) {
-  constexpr int pad = K / 2;
-  const int ch = blockIdx.x * kLanes + threadIdx.x;
-  const int p0 = blockIdx.y * per_slab;
-  const int p1 = min(p0 + per_slab, positions);
-  float acc[K];
+// ---------------------------------------------------------------- dw_temporal_dw
+
+constexpr int kTdwTileVecs = 8;                      // channel vectors per block
+constexpr int kTdwLanes = 32;                        // column lanes per block
+constexpr int kTdwThreads = kTdwTileVecs * kTdwLanes;
+
+// The launch geometry of dw_temporal_dw_walk (ops/dw_kernels.py temporal_launch_geometry).
+struct TemporalDwGeometry {
+  int t_len;      // frames
+  int hw;         // pixels a frame
+  int c;
+  int frame;      // elements a frame: hw * c
+  int columns;    // b * hw
+  int per_block;  // consecutive columns of one block's run
+  int vec;        // 1: 16-byte loads; 0: element by element
+};
+
+// Adds x[t+dt-P] * dy[t] over the T frames of one column into acc[dt].
+template <typename T, int K, int F, bool VEC>
+__device__ __forceinline__ void temporal_dw_column(float (&acc)[K][Vec16<T>::kN], const T* __restrict__ xc,
+                                                   const T* __restrict__ dyc, const TemporalDwGeometry& g,
+                                                   int valid) {
+  using V = Vec16<T>;
+  constexpr int kVec = V::kN;
+  constexpr int kP = K / 2;
+  float win[K - 1][kVec];  // x frames t-P .. t+P-1 of dy frame t
+  start_window<T, K, VEC>(win, xc, g.t_len, g.frame, valid);
+  for (int t0 = 0; t0 < g.t_len; t0 += F) {
+    uint4 rx[F], rd[F];  // x frames t0+P .., dy frames t0 .., loaded together
 #pragma unroll
-  for (int t = 0; t < K; ++t) acc[t] = 0.0f;
-  if (ch < c) {
-    for (int p = p0 + threadIdx.y; p < p1; p += kRows) {
-      const int t = (p / hw) % t_len;
-      const float g = to_float(dy[static_cast<int64_t>(p) * c + ch]);
+    for (int j = 0; j < F; ++j) {
+      rx[j] = load_frame<T, VEC>(xc, t0 + kP + j, g.t_len, g.frame, valid);
+      rd[j] = load_frame<T, VEC>(dyc, t0 + j, g.t_len, g.frame, valid);
+    }
 #pragma unroll
-      for (int dt = 0; dt < K; ++dt) {
-        const int ti = t + dt - pad;
-        if (ti < 0 || ti >= t_len) continue;
-        const int64_t src = (static_cast<int64_t>(p) + static_cast<int64_t>(dt - pad) * hw) * c + ch;
-        acc[dt] = fmaf(to_float(x[src]), g, acc[dt]);
+    for (int o = 0; o < F; ++o) {
+      if (t0 + o >= g.t_len) break;
+      float xn[kVec], d[kVec];
+      V::unpack(xn, rx[o]);
+      V::unpack(d, rd[o]);
+#pragma unroll
+      for (int dt = 0; dt < K - 1; ++dt) {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[dt][i] = fmaf(win[dt][i], d[i], acc[dt][i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[K - 1][i] = fmaf(xn[i], d[i], acc[K - 1][i]);
+      slide_window<K>(win, xn);
+    }
+  }
+}
+
+// Block (run of columns, channel tile); thread (channel vector v = tid % 8,
+// column lane tid / 8). Shared memory: the lanes' sums [32][K][8 * kVec]
+// floats. Registers are capped for 2 blocks an SM.
+template <typename T, int K, int F>
+__global__ void __launch_bounds__(kTdwThreads, 2)
+dw_temporal_dw_walk(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ ws,
+                    const TemporalDwGeometry g) {
+  constexpr int kVec = Vec16<T>::kN;
+  constexpr int kTileFloats = kTdwTileVecs * kVec;  // floats of one tap of the channel tile
+  extern __shared__ float part[];
+  const int v = threadIdx.x % kTdwTileVecs;
+  const int lane = threadIdx.x / kTdwTileVecs;
+  const int ch = (blockIdx.y * kTdwTileVecs + v) * kVec;
+  const int col0 = blockIdx.x * g.per_block;
+  const int col_end = min(col0 + g.per_block, g.columns);
+
+  float acc[K][kVec];
+#pragma unroll
+  for (int dt = 0; dt < K; ++dt) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) acc[dt][i] = 0.0f;
+  }
+  if (ch < g.c) {
+    const int valid = min(kVec, g.c - ch);
+    for (int column = col0 + lane; column < col_end; column += kTdwLanes) {
+      const int b = column / g.hw;
+      const int64_t base = static_cast<int64_t>(b) * g.t_len * g.frame +
+                           static_cast<int64_t>(column - b * g.hw) * g.c + ch;
+      if (g.vec) {
+        temporal_dw_column<T, K, F, true>(acc, x + base, dy + base, g, valid);
+      } else {
+        temporal_dw_column<T, K, F, false>(acc, x + base, dy + base, g, valid);
       }
     }
   }
-  write_partials<K>(acc, ws, c);
+
+  // The lanes' sums, added in lane order.
+#pragma unroll
+  for (int dt = 0; dt < K; ++dt) {
+    float* dst = part + (lane * K + dt) * kTileFloats + v * kVec;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[i] = acc[dt][i];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < K * kTileFloats; e += kTdwThreads) {
+    const int dt = e / kTileFloats;
+    const int rest = e - dt * kTileFloats;
+    const int chan = blockIdx.y * kTileFloats + rest;
+    if (chan >= g.c) continue;
+    float sum = 0.0f;
+    for (int l = 0; l < kTdwLanes; ++l) sum += part[(l * K + dt) * kTileFloats + rest];
+    ws[(static_cast<int64_t>(blockIdx.x) * K + dt) * g.c + chan] = sum;
+  }
 }
 
 // Pass 2: out[i] = sum over slabs of ws[slab, i], slab 0 first.
@@ -666,29 +746,48 @@ int launch_spatial_dw(const void* x, const void* dy, void* ws, void* out, int64_
   return finish_reduction(wsp, static_cast<float*>(out), static_cast<int>(slabs), len, s);
 }
 
+// frame_tile, per_block, slabs and smem_bytes come from the wrapper; the rest
+// of the geometry follows from them here. The workspace holds slabs * k * c
+// floats, dw k * c.
 template <typename T>
 int launch_temporal_dw(const void* x, const void* dy, void* ws, void* out, int64_t batch, int64_t t_len,
-                       int64_t hw, int64_t c, int64_t k, int64_t slabs, void* stream) {
-  const int64_t positions = batch * t_len * hw;
-  const int64_t per_slab = (positions + slabs - 1) / slabs;
-  const dim3 grid(static_cast<unsigned int>((c + kLanes - 1) / kLanes), static_cast<unsigned int>(slabs));
-  const dim3 block(kLanes, kRows);
+                       int64_t hw, int64_t c, int64_t k, int64_t frame_tile, int64_t per_block, int64_t slabs,
+                       int64_t smem_bytes, void* stream) {
+  constexpr int kVec = Vec16<T>::kN;
+  if ((k != 3 && k != 5) || frame_tile != kTemporalFrameTile || per_block < 1 ||
+      smem_bytes != kTdwLanes * k * kTdwTileVecs * kVec * 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto s = static_cast<cudaStream_t>(stream);
+  const int len = static_cast<int>(k * c);
+  if (c == 0) return static_cast<int>(cudaGetLastError());
+  if (batch == 0 || t_len == 0 || hw == 0) {  // no products: dw is 0
+    const cudaError_t status = cudaMemsetAsync(out, 0, static_cast<size_t>(len) * sizeof(float), s);
+    return static_cast<int>(status != cudaSuccess ? status : cudaGetLastError());
+  }
+  TemporalDwGeometry g;
+  g.t_len = static_cast<int>(t_len);
+  g.hw = static_cast<int>(hw);
+  g.c = static_cast<int>(c);
+  g.frame = static_cast<int>(hw * c);
+  g.columns = static_cast<int>(batch * hw);
+  g.per_block = static_cast<int>(per_block);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  g.vec = c % kVec == 0 && aligned(x) && aligned(dy);
+  const int64_t runs = (g.columns + per_block - 1) / per_block;
+  if (slabs != runs) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t cvecs = (c + kVec - 1) / kVec;
+  const dim3 grid(static_cast<unsigned int>(runs), static_cast<unsigned int>((cvecs + kTdwTileVecs - 1) / kTdwTileVecs));
   const auto* xp = static_cast<const T*>(x);
   const auto* dyp = static_cast<const T*>(dy);
   auto* wsp = static_cast<float*>(ws);
+  const int smem = static_cast<int>(smem_bytes);
   if (k == 3) {
-    dw_temporal_dw_partial<T, 3><<<grid, block, 0, s>>>(xp, dyp, wsp, static_cast<int>(t_len),
-                                                          static_cast<int>(hw), static_cast<int>(c),
-                                                          static_cast<int>(positions), static_cast<int>(per_slab));
-  } else if (k == 5) {
-    dw_temporal_dw_partial<T, 5><<<grid, block, 0, s>>>(xp, dyp, wsp, static_cast<int>(t_len),
-                                                          static_cast<int>(hw), static_cast<int>(c),
-                                                          static_cast<int>(positions), static_cast<int>(per_slab));
+    dw_temporal_dw_walk<T, 3, kTemporalFrameTile><<<grid, kTdwThreads, smem, s>>>(xp, dyp, wsp, g);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    dw_temporal_dw_walk<T, 5, kTemporalFrameTile><<<grid, kTdwThreads, smem, s>>>(xp, dyp, wsp, g);
   }
-  return finish_reduction(wsp, static_cast<float*>(out), static_cast<int>(slabs), static_cast<int>(k * c), s);
+  return finish_reduction(wsp, static_cast<float*>(out), static_cast<int>(slabs), len, s);
 }
 
 }  // namespace
@@ -724,13 +823,17 @@ int dw_spatial_dw_bf16(const void* x, const void* dy, void* ws, void* out, int64
 }
 
 int dw_temporal_dw_f32(const void* x, const void* dy, void* ws, void* out, int64_t batch, int64_t t_len,
-                       int64_t hw, int64_t c, int64_t k, int64_t slabs, void* stream) {
-  return launch_temporal_dw<float>(x, dy, ws, out, batch, t_len, hw, c, k, slabs, stream);
+                       int64_t hw, int64_t c, int64_t k, int64_t frame_tile, int64_t per_block, int64_t slabs,
+                       int64_t smem_bytes, void* stream) {
+  return launch_temporal_dw<float>(x, dy, ws, out, batch, t_len, hw, c, k, frame_tile, per_block, slabs,
+                                   smem_bytes, stream);
 }
 
 int dw_temporal_dw_bf16(const void* x, const void* dy, void* ws, void* out, int64_t batch, int64_t t_len,
-                        int64_t hw, int64_t c, int64_t k, int64_t slabs, void* stream) {
-  return launch_temporal_dw<__nv_bfloat16>(x, dy, ws, out, batch, t_len, hw, c, k, slabs, stream);
+                        int64_t hw, int64_t c, int64_t k, int64_t frame_tile, int64_t per_block, int64_t slabs,
+                        int64_t smem_bytes, void* stream) {
+  return launch_temporal_dw<__nv_bfloat16>(x, dy, ws, out, batch, t_len, hw, c, k, frame_tile, per_block,
+                                           slabs, smem_bytes, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
-// Device helpers shared by dw_conv.cu and dw_conv_bwd.cu: scalar conversions,
+// Device helpers shared by dw_conv.cu and dw_conv_bwd.cu: a scalar conversion,
 // 16-byte channel vectors, asynchronous copies from global to shared memory
-// (cp.async), and the staging of x rows with their halo into a ring in shared
-// memory that dw_spatial_fwd and dw_spatial_dw share. Each source includes
-// this header into its own library, so everything here is internal to the
-// including file.
+// (cp.async), the staging of x rows with their halo into a ring in shared
+// memory that dw_spatial_fwd and dw_spatial_dw share, and the column walk of
+// the temporal kernels (dw_temporal_fwd and dw_temporal_dw). Each source
+// includes this header into its own library, so everything here is internal
+// to the including file.
 
 #pragma once
 
@@ -12,9 +13,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
@@ -179,3 +177,75 @@ __device__ __forceinline__ void stage_x_cells(uint4* __restrict__ ring, const T*
     while (slot >= g.ring) slot -= g.ring;
   }
 }
+
+namespace {
+
+// ------------------------------------------------------ temporal column walk
+// The temporal kernels walk columns: a thread owns one channel vector of one
+// (b, hw) column of a (B, T, HW, C) tensor and reads the column's T frames,
+// `frame` = HW*C elements apart, from a pointer to its frame 0. VEC: 16-byte
+// loads and stores; otherwise element by element, the first `valid` channels
+// (a channel tail, or a pointer that is not 16-byte aligned). A walk takes
+// its frames in tiles of kTemporalFrameTile, whose loads it starts together.
+
+constexpr int kTemporalFrameTile = 4;
+
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_vec(const T* __restrict__ p, int valid) {
+  if constexpr (VEC) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    return Vec16<T>::load(p, valid);
+  }
+}
+
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&f)[Vec16<T>::kN], int valid) {
+  if constexpr (VEC) {
+    *reinterpret_cast<uint4*>(p) = Vec16<T>::pack(f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < Vec16<T>::kN; ++i) {
+      if (i < valid) p[i] = from_float<T>(f[i]);
+    }
+  }
+}
+
+// Frame t >= 0 of a column, zeros from frame t_len on: the zero padding at
+// the column's far end.
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_frame(const T* __restrict__ col, int t, int t_len, int frame, int valid) {
+  return t < t_len ? load_vec<T, VEC>(col + t * frame, valid) : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The window a walk starts with: frames -P .. P-1 of the column in fp32
+// (P = K/2), zeros before frame 0, which is the zero padding at the near end.
+// Frame t's output then reads the window and frame t + P.
+template <typename T, int K, bool VEC>
+__device__ __forceinline__ void start_window(float (&win)[K - 1][Vec16<T>::kN], const T* __restrict__ col,
+                                             int t_len, int frame, int valid) {
+  constexpr int kP = K / 2;
+  uint4 raw[kP];
+#pragma unroll
+  for (int j = 0; j < kP; ++j) raw[j] = load_frame<T, VEC>(col, j, t_len, frame, valid);
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+#pragma unroll
+    for (int i = 0; i < Vec16<T>::kN; ++i) win[j][i] = 0.0f;
+    Vec16<T>::unpack(win[kP + j], raw[j]);
+  }
+}
+
+// Slides the window one frame on: frame t + P (in fp32) enters it.
+template <int K, int N>
+__device__ __forceinline__ void slide_window(float (&win)[K - 1][N], const float (&entering)[N]) {
+#pragma unroll
+  for (int j = 0; j + 1 < K - 1; ++j) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) win[j][i] = win[j + 1][i];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) win[K - 2][i] = entering[i];
+}
+
+}  // namespace

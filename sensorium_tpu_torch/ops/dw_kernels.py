@@ -51,17 +51,24 @@ _ENTRIES: dict[str, ctypes._CFuncPtr] = {}
 # Entry point -> (library, number of pointer arguments, number of int64 sizes).
 _SIGNATURES = {
     "dw_spatial_fwd": ("dw_conv", 3, 12),
-    "dw_temporal_fwd": ("dw_conv", 3, 5),
+    "dw_temporal_fwd": ("dw_conv", 3, 6),
     "dw_spatial_dx": ("dw_conv_bwd", 3, 10),
     "dw_spatial_dw": ("dw_conv_bwd", 4, 12),
-    "dw_temporal_dw": ("dw_conv_bwd", 4, 6),
+    "dw_temporal_dw": ("dw_conv_bwd", 4, 9),
     "fused_bn_silu_dw_spatial": ("fused_bn_silu_dw", 5, 6),
 }
-# Kernel sizes the spatial forward, dx and weight-gradient kernels are compiled for.
+# Kernel sizes the spatial and temporal kernels are compiled for.
 _COMPILED_KS = (3, 5)
-# Channels per reduction block and position lanes per block of dw_temporal_dw
-# (dw_conv_bwd.cu).
-_LANES, _ROWS = 32, 8
+# The temporal column walks (dw_conv.cu dw_temporal_fwd_walk, dw_conv_bwd.cu
+# dw_temporal_dw_walk): threads per block, one 16-byte channel vector of one
+# column each; the frames whose loads a thread starts together (dw_vec.cuh
+# kTemporalFrameTile); dw's channel vectors per block and column lanes, and
+# the blocks per SM its registers are capped for, which its runs fill in one
+# wave.
+_TEMPORAL_THREADS = 256
+_TEMPORAL_FRAME_TILE = 4
+_TEMPORAL_DW_TILE_VECS, _TEMPORAL_DW_LANES = 8, 32
+_TEMPORAL_DW_BLOCKS_PER_SM = 2
 # dw_spatial_dx_kernel (dw_conv_bwd.cu, 256 threads a block): 16-byte channel
 # vectors per block; output steps per band (four for each of the block's 32
 # position lanes) and column steps per block; blocks per SM that the row
@@ -274,6 +281,57 @@ def dw_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, ite
     return _fit_tiles(rows, out_cols, cols, _DW_UNITS, _DW_MAX_COL_TILE, _DW_SMEM_BUDGET, tiling)
 
 
+def temporal_launch_geometry(kernel: str, b: int, t: int, hw: int, c: int, k: int, itemsize: int,
+                             sms: int) -> dict:
+    """The tiling of ``dw_temporal_fwd`` or ``dw_temporal_dw`` (``kernel``) for x
+    (b, t, hw, c), and dy of the same shape.
+
+    Both walk columns: a thread owns one 16-byte channel vector (``vec``
+    channels; ``cvecs`` a pixel) of one of the ``b * hw`` (b, pixel) columns
+    and walks its ``t`` frames, ``frame_tile`` at a time. The forward runs
+    one thread per (column, channel vector), 256 a block. dw's block owns
+    ``tile_vecs`` channel vectors and a run of ``per_block`` consecutive
+    columns, which its ``lanes`` column lanes take in turn; the runs, one
+    slab of the workspace each, are as many as fill ``_TEMPORAL_DW_BLOCKS_PER_SM``
+    blocks on every SM in one wave beside the channel tiles, and the block
+    adds its lanes' sums through ``smem_bytes`` of shared memory. The kernels
+    take ``frame_tile`` (dw also ``per_block``, ``slabs`` and ``smem_bytes``)
+    and derive the rest.
+    """
+    vec = 16 // itemsize
+    cvecs = _cdiv(c, vec)
+    columns = b * hw
+    if kernel == "dw_temporal_fwd":
+        threads = columns * cvecs
+        return {
+            "vec": vec,
+            "cvecs": cvecs,
+            "columns": columns,
+            "frame_tile": _TEMPORAL_FRAME_TILE,
+            "threads": threads,
+            "grid": (_cdiv(threads, _TEMPORAL_THREADS), 1, 1),
+            "smem_bytes": 0,
+        }
+    if kernel != "dw_temporal_dw":
+        raise ValueError(f"temporal_launch_geometry: no temporal kernel {kernel!r}")
+    channel_tiles = _cdiv(cvecs, _TEMPORAL_DW_TILE_VECS)
+    runs = max(1, min(columns, _TEMPORAL_DW_BLOCKS_PER_SM * sms // max(1, channel_tiles)))
+    per_block = max(1, _cdiv(columns, runs))
+    runs = _cdiv(columns, per_block)
+    return {
+        "vec": vec,
+        "cvecs": cvecs,
+        "columns": columns,
+        "frame_tile": _TEMPORAL_FRAME_TILE,
+        "tile_vecs": _TEMPORAL_DW_TILE_VECS,
+        "lanes": _TEMPORAL_DW_LANES,
+        "per_block": per_block,
+        "slabs": runs,
+        "grid": (runs, channel_tiles, 1),
+        "smem_bytes": _TEMPORAL_DW_LANES * k * _TEMPORAL_DW_TILE_VECS * vec * 4,
+    }
+
+
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """fp32 for bf16 and fp32 data, float64 for float64 (gradcheck)."""
     return torch.promote_types(torch.float32, dtype)
@@ -318,6 +376,14 @@ def _check_cuda_operands(name: str, **operands: torch.Tensor) -> None:
         raise ValueError(f"{name}: operands must be contiguous")
 
 
+def _check_temporal_offsets(name: str, x: torch.Tensor, geo: dict) -> None:
+    """The temporal kernels step along T with 32-bit offsets, up to a frame
+    tile and k frames past the last."""
+    _, t, h, wd, c = x.shape
+    if (t + geo["frame_tile"] + _COMPILED_KS[-1]) * h * wd * c > _INT32_MAX:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the kernel's 32-bit frame offsets")
+
+
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
@@ -341,14 +407,6 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {status}")
     LAUNCHES[name] += 1
-
-
-def _slabs(device: torch.device, channels: int, positions: int) -> int:
-    """Workspace slabs of a weight-gradient reduction: about eight blocks per
-    SM, and at least 16 positions per position lane of a block."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-channels // _LANES)
-    return max(1, min(-(-8 * sms // tiles), positions // (_ROWS * 16), 65535))
 
 
 # ----------------------------------------------------------------- plain versions
@@ -521,13 +579,18 @@ def dw_temporal_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x, w):
         return dw_temporal_plain(x, w)
     _check_cuda_operands("dw_temporal_fwd", x=x, w=w)
+    k = w.shape[0]
+    if k not in _COMPILED_KS:
+        raise NotImplementedError(f"dw_temporal_fwd: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
     b, t, h, wd, c = x.shape
-    length = h * wd * c
-    if t > _INT32_MAX or length // 256 >= _INT32_MAX:
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    geo = temporal_launch_geometry("dw_temporal_fwd", b, t, h * wd, c, k, x.element_size(), sms)
+    _check_temporal_offsets("dw_temporal_fwd", x, geo)
+    if geo["threads"] + _TEMPORAL_THREADS > _INT32_MAX:
         raise ValueError(f"dw_temporal_fwd: shape {tuple(x.shape)} exceeds the kernel's grid")
     y = torch.empty_like(x)
     _launch("dw_temporal_fwd", x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(),
-            b, t, length, c, w.shape[0])
+            b, t, h * wd, c, k, geo["frame_tile"])
     return y
 
 
@@ -554,14 +617,6 @@ def dw_spatial_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int,
     _launch("dw_spatial_dx", dy.dtype, dy.device, dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
             b * t, h, wd, c, k, stride, geo["band"], geo["col_tile"], geo["bands_per_block"], geo["smem_bytes"])
     return dx
-
-
-def _check_grad_w(name: str, x: torch.Tensor, dy: torch.Tensor, k: int, positions: int) -> None:
-    _check_cuda_operands(name, x=x, dy=dy)
-    if k not in _COMPILED_KS:
-        raise NotImplementedError(f"{name}: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
-    if positions + 65535 > _INT32_MAX or x.shape[-1] * k * k > _INT32_MAX:
-        raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the kernel's grid")
 
 
 def dw_spatial_dw(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
@@ -593,20 +648,26 @@ def dw_spatial_dw(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> tor
 
 
 def dw_temporal_dw(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
-    """dL/dw of ``dw_temporal_fwd``, (k, C) fp32; CUDA kernel (two
-    deterministic passes), or the plain version on CPU."""
+    """dL/dw of ``dw_temporal_fwd``, (k, C) fp32; CUDA kernel (partial sums
+    per block, then a fixed-order sum of them), or the plain version on CPU."""
     if dy.shape != x.shape:
         raise ValueError(f"dw_temporal_dw: dy {tuple(dy.shape)} and x {tuple(x.shape)} differ")
     if _on_cpu(x, dy):
         return dw_temporal_dw_plain(x, dy, k)
+    _check_cuda_operands("dw_temporal_dw", x=x, dy=dy)
+    if k not in _COMPILED_KS:
+        raise NotImplementedError(f"dw_temporal_dw: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
     b, t, h, wd, c = x.shape
-    positions = x.numel() // c
-    _check_grad_w("dw_temporal_dw", x, dy, k, positions)
-    slabs = _slabs(x.device, c, positions)
-    workspace = torch.empty((slabs, k, c), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    geo = temporal_launch_geometry("dw_temporal_dw", b, t, h * wd, c, k, x.element_size(), sms)
+    _check_temporal_offsets("dw_temporal_dw", x, geo)
+    if (geo["columns"] + geo["per_block"] > _INT32_MAX or geo["slabs"] * k * c > _INT32_MAX
+            or any(g > m for g, m in zip(geo["grid"], _MAX_GRID))):
+        raise ValueError(f"dw_temporal_dw: shape {tuple(x.shape)} exceeds the kernel's grid")
+    workspace = torch.empty((geo["slabs"], k, c), dtype=torch.float32, device=x.device)
     dw = torch.empty((k, c), dtype=torch.float32, device=x.device)
     _launch("dw_temporal_dw", x.dtype, x.device, x.data_ptr(), dy.data_ptr(), workspace.data_ptr(), dw.data_ptr(),
-            b, t, h * wd, c, k, slabs)
+            b, t, h * wd, c, k, geo["frame_tile"], geo["per_block"], geo["slabs"], geo["smem_bytes"])
     return dw
 
 

@@ -346,6 +346,133 @@ def test_weight_gradients_are_the_same_from_run_to_run(cuda):
     assert all(torch.equal(first, dw_kernels.dw_spatial_dw(x, dy, 3, 2)) for _ in range(3))
 
 
+def assert_dw_close(got: torch.Tensor, ref: torch.Tensor) -> None:
+    """A weight gradient within 1e-5 of its largest value (+1e-5) of the plain
+    version in float64."""
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert (got.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item() + 1e-5
+
+
+def check_temporal_kernels(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> None:
+    """dw_temporal_fwd (held as test_kernels_match_plain holds it) and
+    dw_temporal_dw (held as test_backward_kernels_match_plain holds dw), one
+    launch each."""
+    k = w.shape[0]
+    before = dict(dw_kernels.LAUNCHES)
+    y = dw_kernels.dw_temporal_fwd(x, w)
+    dw = dw_kernels.dw_temporal_dw(x, dy, k)
+    torch.cuda.synchronize()
+    for name in ("dw_temporal_fwd", "dw_temporal_dw"):
+        assert dw_kernels.LAUNCHES[name] == before[name] + 1, name
+    assert y.dtype == x.dtype and y.shape == x.shape
+    rtol = BF16_RTOL if x.dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(y.float(), dw_kernels.dw_temporal_plain(x.float(), w.float()), rtol=rtol, atol=1e-5)
+    assert_dw_close(dw, dw_kernels.dw_temporal_dw_plain(x.double(), dy.double(), k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw, c", [(32, 448), (16, 896), (8, 1792)])
+def test_temporal_kernels_match_plain_at_flagship_shapes(cuda, hw, c, dtype):
+    """The temporal convs of the 9 blocks of a flagship step (32 x 16 frames, k = 5)."""
+    rng = np.random.default_rng(40)
+    x = rand(rng, 32, 16, hw, hw, c).to(cuda, dtype)
+    dy = rand(rng, 32, 16, hw, hw, c).to(cuda, dtype)
+    w = (rand(rng, 5, c) / 5**0.5).to(cuda, dtype)
+    check_temporal_kernels(x, w, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("t, c", [(1, 24), (2, 24), (37, 24), (7, 20), (7, 22), (7, 264)])
+def test_temporal_kernels_match_plain_at_walk_edges(cuda, t, c, k, dtype):
+    """The edges of the column walk: T below k (1, 2), T not a multiple of the
+    frame tile (37), channel tails (c=20 in bf16, c=22 in both: element by
+    element) and C wider than dw's tile of 8 channel vectors (c=264)."""
+    rng = np.random.default_rng(41)
+    x = rand(rng, 2, t, 9, 11, c).to(cuda, dtype)
+    dy = rand(rng, 2, t, 9, 11, c).to(cuda, dtype)
+    w = (rand(rng, k, c) / k**0.5).to(cuda, dtype)
+    check_temporal_kernels(x, w, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_temporal_kernels_take_unaligned_pointers(cuda, dtype):
+    """Contiguous operands whose storage starts one element past a 16-byte
+    boundary: the kernels load and store element by element."""
+    rng = np.random.default_rng(42)
+    shape = (2, 7, 5, 6, 32)
+
+    def unaligned(values: torch.Tensor) -> torch.Tensor:
+        buf = torch.empty(values.numel() + 1, device=cuda, dtype=dtype)
+        out = buf[1:].view(values.shape)
+        out.copy_(values)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    x = unaligned(rand(rng, *shape).to(cuda, dtype))
+    dy = unaligned(rand(rng, *shape).to(cuda, dtype))
+    w = unaligned((rand(rng, 5, 32) / 5**0.5).to(cuda, dtype))
+    check_temporal_kernels(x, w, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [3, 5])
+def test_temporal_function_backward_matches_plain(cuda, k, dtype):
+    """DwTemporal.backward: dx is the forward kernel with the taps reversed,
+    held as the forward is against the plain version of the same; dw its own
+    kernel. One launch of each."""
+    rng = np.random.default_rng(43)
+    x = rand(rng, 2, 37, 6, 7, 24).to(cuda, dtype).requires_grad_()
+    w = (rand(rng, k, 24) / k**0.5).to(cuda, dtype).requires_grad_()
+    dy = rand(rng, 2, 37, 6, 7, 24).to(cuda, dtype)
+    y = dw_kernels.dw_temporal(x, w)
+    before = dict(dw_kernels.LAUNCHES)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert dw_kernels.LAUNCHES["dw_temporal_fwd"] == before["dw_temporal_fwd"] + 1
+    assert dw_kernels.LAUNCHES["dw_temporal_dw"] == before["dw_temporal_dw"] + 1
+    assert x.grad.dtype == dtype and w.grad.dtype == dtype
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    ref_dx = dw_kernels.dw_temporal_plain(dy.float(), w.detach().float().flip(0))
+    torch.testing.assert_close(x.grad.float(), ref_dx, rtol=rtol, atol=1e-5)
+    ref_dw = dw_kernels.dw_temporal_dw_plain(x.detach().double(), dy.double(), k)
+    bound = 1e-5 * ref_dw.abs().max().item() + 1e-5
+    if dtype == torch.bfloat16:  # dw rounded once to w's dtype
+        bound += BF16_RTOL * ref_dw.abs().max().item()
+    assert (w.grad.double() - ref_dw).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_temporal_dw_kernel_is_the_same_from_run_to_run(cuda):
+    """At block 0-3's width (448 channels, 32x32 frames), three reruns are
+    bitwise equal: fixed-order sums, no atomics."""
+    rng = np.random.default_rng(44)
+    x = rand(rng, 4, 16, 32, 32, 448).to(cuda, torch.bfloat16)
+    dy = rand(rng, 4, 16, 32, 32, 448).to(cuda, torch.bfloat16)
+    first = dw_kernels.dw_temporal_dw(x, dy, 5)
+    assert all(torch.equal(first, dw_kernels.dw_temporal_dw(x, dy, 5)) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_temporal_kernels_refuse_other_kernel_sizes_on_the_card(cuda):
+    """k = 7 is not compiled: the wrappers raise before launching on the card,
+    while the CPU path still answers through the plain versions."""
+    rng = np.random.default_rng(45)
+    x, w = rand(rng, 1, 9, 3, 4, 8), rand(rng, 7, 8)
+    before = dict(dw_kernels.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="k=7"):
+        dw_kernels.dw_temporal_fwd(x.to(cuda), w.to(cuda))
+    with pytest.raises(NotImplementedError, match="k=7"):
+        dw_kernels.dw_temporal_dw(x.to(cuda), x.to(cuda), 7)
+    assert dw_kernels.LAUNCHES == before
+    assert dw_kernels.dw_temporal_fwd(x, w).shape == x.shape
+    assert dw_kernels.dw_temporal_dw(x, x, 7).shape == (7, 8)
+
+
 @pytest.mark.cuda
 def test_train_step_on_the_card_matches_the_cpu(cuda):
     """A tiny fp32 model, drop rates 0, block 1 rematerialized: one step on the
