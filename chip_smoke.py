@@ -72,10 +72,16 @@ Phases, each of which passes or makes the script exit non-zero:
    dw shape of a flagship chunk forward, at the two shapes of ``dwbench``
    that the model does not run, at ragged shapes and with half the channels
    dead (scale 0, shift != 0), in bf16 and fp32, held as phase 3 holds the
-   forward kernels. No single PyTorch call computes this function:
+   forward kernels; each call is run twice and must give bitwise equal
+   results. The ragged cases add the edges phase 3 gives the spatial
+   forward (tile edges, a 1x1 frame, channel tails, k = 5 at both strides,
+   C wider than one channel tile, 8192 small frames that blocks walk), with
+   half the channels dead. No single PyTorch call computes this function:
    ``library_ms`` is the faster of two eager chains, ``silu(addcmul)`` ->
    ``F.conv3d(groups=C)`` and ``silu(addcmul)`` -> ``F.conv2d(groups=C)``
-   (``dwbench``'s ``chain`` and ``chain2d``), and both are recorded;
+   (``dwbench``'s ``chain`` and ``chain2d``), and both are recorded; beside
+   them ``dw_spatial_fwd``'s time on the same x and w (``fwd_ms``), the
+   yardstick for what the prologue costs;
 10. dwbench: ``sensorium_tpu_torch.tools.dwbench`` at its own shapes, every
    impl; each must return a time, and ``fused`` must be within one bf16
    rounding of the activation of ``pallas``. This is the fused kernel's main
@@ -895,6 +901,16 @@ def fused_cases() -> list[dict]:
             for dead in (False, True):
                 cases.append({"hw": (9, 11), "c": 24, "stride": stride, "k": k, "blocks": [], "batch": (2, 3),
                               "dead": dead})
+    # The edges of the kernel's tiling, as phase 3 gives the spatial forward's.
+    edges = [((33, 17), 24, (3, 5)), ((7, 5), 24, (3, 5)), ((2, 70), 24, (3,)), ((70, 3), 24, (3,)),
+             ((1, 1), 24, (3,)), ((9, 11), 20, (3,)), ((9, 11), 22, (3,)), ((10, 12), 264, (3,))]
+    for hw, c, ks in edges:
+        for k in ks:
+            for stride in (1, 2):
+                cases.append({"hw": hw, "c": c, "stride": stride, "k": k, "blocks": [], "batch": (2, 3),
+                              "dead": True})
+    for hw, c, k, stride in (((7, 5), 24, 3, 1), ((4, 4), 22, 3, 2), ((1, 1), 8, 5, 1)):
+        cases.append({"hw": hw, "c": c, "stride": stride, "k": k, "blocks": [], "batch": (64, 128), "dead": True})
     return cases
 
 
@@ -925,6 +941,7 @@ def check_fused_kernel(peaks: tuple[float, float]) -> list[dict]:
             plain = lambda: dw_kernels.fused_bn_silu_dw_spatial_plain(x, scale, shift, wt, s)  # noqa: E731
             chain3d = lambda: dwbench.chain(x, scale, shift, wt, s)  # noqa: E731
             chain2d = lambda: dwbench.chain2d(x, scale, shift, wt, s)  # noqa: E731
+            fwd = lambda: dw_kernels.dw_spatial_fwd(x, wt, s)  # noqa: E731
 
             y = run()
             torch.cuda.synchronize()
@@ -933,7 +950,8 @@ def check_fused_kernel(peaks: tuple[float, float]) -> list[dict]:
                 fail(f"{name} {case}: {tuple(y.shape)} {y.dtype} vs plain {tuple(ref.shape)}")
             err = (y.float() - ref).abs()
             rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
-            ok = bool(torch.all(err <= ATOL + rtol * ref.abs()))
+            rerun_equal = torch.equal(y, run())  # one pass, no atomics: a rerun is bitwise equal
+            ok = bool(torch.all(err <= ATOL + rtol * ref.abs())) and rerun_equal
             row = {
                 "kernel": name,
                 "dtype": str(dtype).replace("torch.", ""),
@@ -943,6 +961,7 @@ def check_fused_kernel(peaks: tuple[float, float]) -> list[dict]:
                 "dead_channels": case["dead"],
                 "blocks": case["blocks"],
                 "max_abs_err": float(err.max()),
+                "rerun_equal": rerun_equal,
                 "ok": ok,
             }
             del err, ref
@@ -958,12 +977,13 @@ def check_fused_kernel(peaks: tuple[float, float]) -> list[dict]:
             row["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
             row["chain3d_ms"], row["chain2d_ms"] = cuda_ms(chain3d), cuda_ms(chain2d)
             row["library_ms"] = min(row["chain3d_ms"], row["chain2d_ms"])
+            row["fwd_ms"] = cuda_ms(fwd)
             rows.append(row)
             print(
                 f"kernel {name} {row['dtype']:<8} {str(row['shape']):<28} s={s} k={k} "
                 f"dead={case['dead']} blocks={row['blocks']} err={row['max_abs_err']:.3g} ok={ok} "
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} chain3d_ms={row['chain3d_ms']:.4f} "
-                f"chain2d_ms={row['chain2d_ms']:.4f} "
+                f"chain2d_ms={row['chain2d_ms']:.4f} fwd_ms={row['fwd_ms']:.4f} "
                 f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, {nbytes / 1e9:.3f} GB)",
                 flush=True,
             )
@@ -1205,6 +1225,8 @@ def _summed(rows: list[dict], name: str) -> dict:
     }
     if "library2d_ms" in flagship[0]:
         summed["library2d_ms"], summed["library3d_ms"] = total("library2d_ms"), total("library3d_ms")
+    if "fwd_ms" in flagship[0]:
+        summed["dw_spatial_fwd_ms"] = total("fwd_ms")
     return summed
 
 
@@ -1247,7 +1269,8 @@ def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused
         "launches": fused_launches[name],
         **_summed(fused_rows, name),
         "library_note": "no single PyTorch call computes this function: library_ms is, per shape, the faster "
-                        "eager chain, silu(addcmul) -> F.conv3d(groups=C) or -> F.conv2d(groups=C)",
+                        "eager chain, silu(addcmul) -> F.conv3d(groups=C) or -> F.conv2d(groups=C); "
+                        "dw_spatial_fwd_ms is the spatial forward kernel alone on the same x and w",
         "scope": "sum over the 9 blocks' BN -> SiLU -> spatial dw of one flagship chunk forward "
                  "(32 windows x 16 frames), bf16; launches in the dwbench run (phase 10)",
     })

@@ -1,8 +1,9 @@
-// Device helpers shared by dw_conv.cu and dw_conv_bwd.cu: a scalar conversion,
-// 16-byte channel vectors, asynchronous copies from global to shared memory
-// (cp.async), the staging of x rows with their halo into a ring in shared
-// memory that dw_spatial_fwd and dw_spatial_dw share, and the column walk of
-// the temporal kernels (dw_temporal_fwd and dw_temporal_dw). Each source
+// Device helpers shared by dw_conv.cu, dw_conv_bwd.cu and fused_bn_silu_dw.cu:
+// a scalar conversion, 16-byte channel vectors, asynchronous copies from
+// global to shared memory (cp.async), the staging of x rows with their halo
+// into a ring in shared memory that dw_spatial_fwd and dw_spatial_dw share,
+// the in-frame predicate of a staged x element, and the column walk of the
+// temporal kernels (dw_temporal_fwd and dw_temporal_dw). Each source
 // includes this header into its own library, so everything here is internal
 // to the including file.
 
@@ -139,6 +140,13 @@ __device__ __forceinline__ void stage_x_rows(uint4* __restrict__ ring, const T* 
 
 }  // namespace
 
+// Whether x element (row r, column col) of the channel vector from channel ch
+// lies in the frame; everything else is the zero padding.
+template <typename Geo>
+__device__ __forceinline__ bool x_inside(const Geo& g, int r, int col, int ch) {
+  return ch < g.c && r >= 0 && r < g.h && col >= 0 && col < g.wd;
+}
+
 // stage_x_rows with the (row, column) cells of all rows dealt to the lanes in
 // turn, so that no lane idles where a ring row is narrower than the lanes (the
 // small frames). Each lane steps its row, column and slot on without a
@@ -154,11 +162,10 @@ __device__ __forceinline__ void stage_x_cells(uint4* __restrict__ ring, const T*
   int cc = lane - rr * g.tile_cols;
   int slot = (base + r_begin + P) % g.ring + rr;
   slot -= slot >= g.ring ? g.ring : 0;
-  const bool chan_inside = ch < g.c;
 #pragma unroll 1
   for (int r = r_begin + rr; r <= r_end;) {
     const int col = xcol0 + cc;
-    const bool inside = chan_inside && r >= 0 && r < g.h && col >= 0 && col < g.wd;
+    const bool inside = x_inside(g, r, col, ch);
     const T* src = inside ? xn + (r * g.wd + col) * g.c + ch : xn;
     uint4* dst = ring + (slot * g.tile_cols + cc) * kVecs + v;
     if (g.vec) {

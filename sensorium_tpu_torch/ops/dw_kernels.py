@@ -55,7 +55,7 @@ _SIGNATURES = {
     "dw_spatial_dx": ("dw_conv_bwd", 3, 10),
     "dw_spatial_dw": ("dw_conv_bwd", 4, 12),
     "dw_temporal_dw": ("dw_conv_bwd", 4, 9),
-    "fused_bn_silu_dw_spatial": ("fused_bn_silu_dw", 5, 6),
+    "fused_bn_silu_dw_spatial": ("fused_bn_silu_dw", 5, 12),
 }
 # Kernel sizes the spatial and temporal kernels are compiled for.
 _COMPILED_KS = (3, 5)
@@ -172,6 +172,30 @@ def _fit_tiles(rows: int, out_cols: int, cols: int, units: int, max_col_tile: in
     return geo
 
 
+def _band_walk(n: int, rows: int, band: int, channel_tiles: int, col_tiles: int, blocks_per_sm: int,
+               sms: int) -> dict:
+    """How the blocks of ``dw_spatial_fwd`` and ``fused_bn_silu_dw_spatial``
+    walk their bands of ``band`` output rows: where a band holds a whole frame
+    and the frames give enough blocks, one band in each of ``frames`` (2)
+    frames; otherwise the bands of a group of one frame's rows, with row
+    groups only where the frames alone give fewer than ``blocks_per_sm``
+    blocks per SM."""
+    bands = _cdiv(rows, band)
+    walk = bands == 1 and _cdiv(n, 2) * channel_tiles * col_tiles >= _FWD_WALK_MIN_BLOCKS * sms
+    frames = 2 if walk else 1
+    groups = min(bands, max(1, _cdiv(blocks_per_sm * sms, n * channel_tiles * col_tiles)))
+    bands_per_block = _cdiv(bands, groups)
+    groups = _cdiv(bands, bands_per_block)
+    return {"frames": frames, "bands_per_block": bands_per_block, "groups": groups,
+            "grid": (_cdiv(n, frames) * groups, channel_tiles, col_tiles)}
+
+
+def _fwd_cols(stride: int, rows: int, out_cols: int) -> int:
+    """Outputs a thread computes along a row: 2 at stride 2, 4 at stride 1
+    unless a frame then has fewer units than a block has lanes."""
+    return 4 if stride == 1 and rows * _cdiv(out_cols, 4) >= _FWD_LANES else 2
+
+
 def fwd_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, itemsize: int, sms: int) -> dict:
     """The tiling of ``dw_spatial_fwd_kernel`` for ``n`` frames of x (h, wd, c).
 
@@ -193,35 +217,75 @@ def fwd_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, it
     """
     vec = 16 // itemsize
     rows, out_cols = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
-    cols = 4 if stride == 1 and rows * _cdiv(out_cols, 4) >= _FWD_LANES else 2
+    cols = _fwd_cols(stride, rows, out_cols)
     weight_bytes = k * k * _FWD_TILE_VECS * vec * 4
     channel_tiles = _cdiv(_cdiv(c, vec), _FWD_TILE_VECS)
 
     def tiling(col_tile: int, band: int) -> dict:
-        bands, col_tiles = _cdiv(rows, band), _cdiv(out_cols, col_tile)
-        walk = bands == 1 and _cdiv(n, 2) * channel_tiles * col_tiles >= _FWD_WALK_MIN_BLOCKS * sms
-        frames = 2 if walk else 1
-        groups = min(bands, max(1, _cdiv(_FWD_BLOCKS_PER_SM * sms, n * channel_tiles * col_tiles)))
-        bands_per_block = _cdiv(bands, groups)
-        groups = _cdiv(bands, bands_per_block)
+        walk = _band_walk(n, rows, band, channel_tiles, _cdiv(out_cols, col_tile), _FWD_BLOCKS_PER_SM, sms)
         frame_rows = stride * (band - 1) + k
-        held = 2 if max(frames, bands_per_block) > 1 else 1  # a band, and the next one if the block walks on
-        ring = held * frame_rows if frames > 1 else stride * (held * band - 1) + k
+        # A band, and the next one if the block walks on.
+        held = 2 if max(walk["frames"], walk["bands_per_block"]) > 1 else 1
+        ring = held * frame_rows if walk["frames"] > 1 else stride * (held * band - 1) + k
         tile_cols = stride * (col_tile - 1) + k
         return {
             "cols": cols,
             "band": band,
             "col_tile": col_tile,
-            "frames": frames,
-            "bands_per_block": bands_per_block,
-            "groups": groups,
+            **walk,
             "ring": ring,
             "tile_cols": tile_cols,
-            "grid": (_cdiv(n, frames) * groups, channel_tiles, col_tiles),
             "smem_bytes": ring * tile_cols * _FWD_TILE_VECS * 16 + weight_bytes,
         }
 
     return _fit_tiles(rows, out_cols, cols, _FWD_LANES, _FWD_MAX_COL_TILE, _FWD_SMEM_BUDGET, tiling)
+
+
+def _fused_blocks_per_sm(k: int, stride: int, itemsize: int) -> int:
+    """The blocks per SM that ``fused_bn_silu_dw_kernel``'s registers are
+    capped for (its launch bounds): 3, but 2 at k = 5 and for bf16 at stride
+    2, whose prologue pass is the longest."""
+    return 2 if k == 5 or (itemsize == 2 and stride == 2) else 3
+
+
+def fused_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, itemsize: int, sms: int) -> dict:
+    """The tiling of ``fused_bn_silu_dw_kernel`` for ``n`` frames of x (h, wd, c).
+
+    Units, bands, column and channel tiles, frame walking and row groups are
+    the forward's (``fwd_launch_geometry``). The block holds the ``ring =
+    stride * (band - 1) + k`` x rows a band reads, of ``tile_cols = stride *
+    (col_tile - 1) + k`` columns, twice in shared memory: raw, where the next
+    band's new rows land while this band computes, and as fp32 activations
+    (``silu(x * scale + shift)``, made once per element at the top of the
+    band), beside its weights, scale and shift in fp32. The column tile, then
+    the band, shrink until ``_fused_blocks_per_sm`` blocks (``blocks``) fit
+    an SM's shared memory. The kernel takes ``band``, ``col_tile``,
+    ``cols``, ``frames``, ``bands_per_block`` and ``smem_bytes`` and derives
+    the rest.
+    """
+    vec = 16 // itemsize
+    blocks = _fused_blocks_per_sm(k, stride, itemsize)
+    rows, out_cols = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
+    cols = _fwd_cols(stride, rows, out_cols)
+    fixed_bytes = (k * k + 2) * _FWD_TILE_VECS * vec * 4  # weights, scale and shift
+    channel_tiles = _cdiv(_cdiv(c, vec), _FWD_TILE_VECS)
+
+    def tiling(col_tile: int, band: int) -> dict:
+        walk = _band_walk(n, rows, band, channel_tiles, _cdiv(out_cols, col_tile), blocks, sms)
+        ring = stride * (band - 1) + k
+        tile_cols = stride * (col_tile - 1) + k
+        return {
+            "cols": cols,
+            "band": band,
+            "col_tile": col_tile,
+            **walk,
+            "ring": ring,
+            "tile_cols": tile_cols,
+            "smem_bytes": ring * tile_cols * _FWD_TILE_VECS * (vec * 4 + 16) + fixed_bytes,
+        }
+
+    budget = 233_472 // blocks - 1024  # an SM's shared memory, less 1 KB reserved per block
+    return _fit_tiles(rows, out_cols, cols, _FWD_LANES, _FWD_MAX_COL_TILE, budget, tiling)
 
 
 def dw_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, itemsize: int, sms: int) -> dict:
@@ -384,6 +448,14 @@ def _check_temporal_offsets(name: str, x: torch.Tensor, geo: dict) -> None:
         raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the kernel's 32-bit frame offsets")
 
 
+def _check_grid(name: str, shape: tuple, geo: dict, frame_in: int, frame_out: int) -> None:
+    """The spatial kernels' 32-bit offsets inside a frame of ``frame_in``
+    and ``frame_out`` elements, CUDA's grid limits and a block's shared memory."""
+    if (frame_in > _INT32_MAX or frame_out > _INT32_MAX
+            or any(g > m for g, m in zip(geo["grid"], _MAX_GRID)) or geo["smem_bytes"] > _MAX_SMEM_BYTES):
+        raise ValueError(f"{name}: shape {shape} exceeds the kernel's grid")
+
+
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
@@ -540,9 +612,7 @@ def dw_spatial_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.T
     oh, ow = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     geo = fwd_launch_geometry(b * t, h, wd, c, k, stride, x.element_size(), sms)
-    if (h * wd * c > _INT32_MAX or oh * ow * c > _INT32_MAX
-            or any(g > m for g, m in zip(geo["grid"], _MAX_GRID)) or geo["smem_bytes"] > _MAX_SMEM_BYTES):
-        raise ValueError(f"dw_spatial_fwd: shape {tuple(x.shape)} exceeds the kernel's grid")
+    _check_grid("dw_spatial_fwd", tuple(x.shape), geo, h * wd * c, oh * ow * c)
     y = torch.empty((b, t, oh, ow, c), dtype=x.dtype, device=x.device)
     _launch("dw_spatial_fwd", x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(), b * t, h, wd, c, k, stride,
             geo["band"], geo["col_tile"], geo["cols"], geo["frames"], geo["bands_per_block"], geo["smem_bytes"])
@@ -563,13 +633,18 @@ def fused_bn_silu_dw_spatial(
             raise TypeError(f"fused_bn_silu_dw_spatial: {name} must be a contiguous float32 tensor on {x.device}, "
                             f"got {t.dtype} on {t.device}")
     k = w.shape[0]
+    if k not in _COMPILED_KS:
+        raise NotImplementedError(
+            f"fused_bn_silu_dw_spatial: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
     b, t, h, wd, c = x.shape
     oh, ow = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
-    if b * t * oh > _INT32_MAX or ow * c > _INT32_MAX or h * wd * c > _INT32_MAX:
-        raise ValueError(f"fused_bn_silu_dw_spatial: shape {tuple(x.shape)} exceeds the kernel's grid")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    geo = fused_launch_geometry(b * t, h, wd, c, k, stride, x.element_size(), sms)
+    _check_grid("fused_bn_silu_dw_spatial", tuple(x.shape), geo, h * wd * c, oh * ow * c)
     y = torch.empty((b, t, oh, ow, c), dtype=x.dtype, device=x.device)
     _launch("fused_bn_silu_dw_spatial", x.dtype, x.device, x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            w.data_ptr(), y.data_ptr(), b * t, h, wd, c, k, stride)
+            w.data_ptr(), y.data_ptr(), b * t, h, wd, c, k, stride, geo["band"], geo["col_tile"], geo["cols"],
+            geo["frames"], geo["bands_per_block"], geo["smem_bytes"])
     return y
 
 
@@ -610,9 +685,7 @@ def dw_spatial_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int,
         raise NotImplementedError(f"dw_spatial_dx: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
     sms = torch.cuda.get_device_properties(dy.device).multi_processor_count
     geo = dx_launch_geometry(b * t, h, wd, c, k, stride, dy.element_size(), sms)
-    if (h * wd * c > _INT32_MAX or oh * ow * c > _INT32_MAX
-            or any(g > m for g, m in zip(geo["grid"], _MAX_GRID)) or geo["smem_bytes"] > _MAX_SMEM_BYTES):
-        raise ValueError(f"dw_spatial_dx: shape {tuple(dy.shape)} exceeds the kernel's grid")
+    _check_grid("dw_spatial_dx", tuple(dy.shape), geo, h * wd * c, oh * ow * c)
     dx = torch.empty((b, t, h, wd, c), dtype=dy.dtype, device=dy.device)
     _launch("dw_spatial_dx", dy.dtype, dy.device, dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
             b * t, h, wd, c, k, stride, geo["band"], geo["col_tile"], geo["bands_per_block"], geo["smem_bytes"])

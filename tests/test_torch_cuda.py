@@ -533,6 +533,102 @@ def test_fused_kernel_matches_plain(cuda, k, stride, dtype):
                for _ in range(2))
 
 
+def check_fused_kernel(x, scale, shift, w, stride: int) -> torch.Tensor:
+    """One launch of the fused kernel, held to its plain version computed in
+    fp32 from the same inputs, as test_fused_kernel_matches_plain holds it."""
+    before = dw_kernels.LAUNCHES["fused_bn_silu_dw_spatial"]
+    got = dw_kernels.fused_bn_silu_dw_spatial(x, scale, shift, w, stride)
+    torch.cuda.synchronize()
+    assert dw_kernels.LAUNCHES["fused_bn_silu_dw_spatial"] == before + 1
+    assert got.dtype == x.dtype
+    ref = dw_kernels.fused_bn_silu_dw_spatial_plain(x.float(), scale, shift, w.float(), stride)
+    rtol = BF16_RTOL if x.dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=1e-5)
+    return got
+
+
+def fused_operands(rng, shape, k: int, device, dtype):
+    """x, scale and shift with half the channels dead (scale 0, shift 1), w."""
+    c = shape[-1]
+    x = rand(rng, *shape).to(device, dtype)
+    scale = (1.0 + 0.2 * rand(rng, c)).to(device)
+    shift = (0.2 * rand(rng, c)).to(device)
+    scale[c // 2 :], shift[c // 2 :] = 0.0, 1.0
+    return x, scale, shift, (rand(rng, k, k, c) / k).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "hw, c, k, stride",
+    [(hw, 24, k, s) for hw in ((33, 17), (7, 5)) for k in (3, 5) for s in (1, 2)]
+    + [(hw, c, 3, s) for hw, c in (((2, 70), 24), ((70, 3), 24), ((1, 1), 24), ((9, 11), 20), ((9, 11), 22),
+                                   ((10, 12), 264)) for s in (1, 2)],
+)
+def test_fused_kernel_matches_plain_at_tile_edges(cuda, hw, c, k, stride, dtype):
+    """The edges of the fused kernel's tiling, with half the channels dead: H
+    and W that are not multiples of its bands and column tiles, frames wider
+    or taller than one tile, a 1x1 frame, channel tails (c=20 in bf16, c=22 in
+    both: element-by-element copies), k = 5 at both strides, and C wider than
+    one tile of 8 channel vectors (c=264)."""
+    check_fused_kernel(*fused_operands(np.random.default_rng(50), (2, 3, *hw, c), k, cuda, dtype), stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw, c, k, stride", [((7, 5), 24, 3, 1), ((4, 4), 22, 3, 2), ((1, 1), 8, 5, 1)])
+def test_fused_kernel_matches_plain_when_blocks_walk_frames(cuda, hw, c, k, stride, dtype):
+    """8192 small frames: each block walks two, the next frame's rows landing
+    while this one computes."""
+    x, scale, shift, w = fused_operands(np.random.default_rng(51), (64, 128, *hw, c), k, cuda, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert dw_kernels.fused_launch_geometry(64 * 128, *hw, c, k, stride, x.element_size(), sms)["frames"] > 1
+    check_fused_kernel(x, scale, shift, w, stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_fused_kernel_takes_unaligned_pointers(cuda, stride, dtype):
+    """Contiguous operands whose storage starts one element past a 16-byte
+    boundary (x, w, scale and shift): the kernel stages and stores element by
+    element."""
+    rng = np.random.default_rng(52)
+
+    def unaligned(values: torch.Tensor) -> torch.Tensor:
+        buf = torch.empty(values.numel() + 1, device=cuda, dtype=values.dtype)
+        out = buf[1:].view(values.shape)
+        out.copy_(values)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    operands = fused_operands(rng, (2, 3, 9, 11, 32), 3, cuda, dtype)
+    check_fused_kernel(*(unaligned(t) for t in operands), stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_fused_kernel_is_the_same_from_run_to_run(cuda, stride):
+    """At a flagship width (448 channels, a 32x32 frame of block 1 or 64x64 of
+    block 0), three reruns are bitwise equal: one pass, no atomics."""
+    h = 32 * stride
+    x, scale, shift, w = fused_operands(np.random.default_rng(53), (2, 8, h, h, 448), 3, cuda, torch.bfloat16)
+    first = check_fused_kernel(x, scale, shift, w, stride)
+    assert all(torch.equal(first, dw_kernels.fused_bn_silu_dw_spatial(x, scale, shift, w, stride)) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_fused_kernel_refuses_other_kernel_sizes_on_the_card(cuda):
+    """k = 7 is not compiled: the wrapper raises before launching on the card,
+    while the CPU path still answers through the plain version."""
+    x, scale, shift, w = fused_operands(np.random.default_rng(54), (1, 2, 9, 8, 8), 7, "cpu", torch.float32)
+    before = dw_kernels.LAUNCHES["fused_bn_silu_dw_spatial"]
+    with pytest.raises(NotImplementedError, match="k=7"):
+        dw_kernels.fused_bn_silu_dw_spatial(x.to(cuda), scale.to(cuda), shift.to(cuda), w.to(cuda), 1)
+    assert dw_kernels.LAUNCHES["fused_bn_silu_dw_spatial"] == before
+    assert dw_kernels.fused_bn_silu_dw_spatial(x, scale, shift, w, 1).shape == (1, 2, 9, 8, 8)
+
+
 @pytest.mark.cuda
 def test_fused_wrapper_refuses_bad_operands_on_the_card(cuda):
     x = torch.zeros(1, 2, 4, 4, 8, device=cuda)
