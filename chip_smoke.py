@@ -96,7 +96,33 @@ Phases, each of which passes or makes the script exit non-zero:
    ``val_corr`` must be finite, the launches per step those of phase 7,
    both logs two epochs long, and the native host library in use. It
    prints the clips/s fed from disk beside phase 7's and the share of the
-   wall clock ``fit`` waited on the loader.
+   wall clock ``fit`` waited on the loader. The dataset also holds one
+   unlabeled 300-frame ``live_test_main`` trial for each new mouse;
+12. import proof: a reference-format ``.pth`` of the flagship model with
+   the weights ``tests/golden/procedural_weights.py`` makes from the key and
+   shape table of ``tests/golden/import_proof_flagship.npz``, converted by
+   ``cli/import_torch.convert_checkpoint`` (fp32), loaded by
+   ``Predictor(ckpt)`` and run on the golden's 40-frame trial: the result
+   must match the reference implementation's own output within rtol 2e-3
+   and atol 2e-4 of its largest value;
+13. checkpoints: the flagship ``MouseModel`` (as in phase 7) takes a step;
+   ``save`` then ``load_model`` must give the EMA weights bit for bit, a
+   background save made before the next step must equal the sync save byte
+   for byte (its copy to the host is made before the step changes the EMA
+   in place), as must a background train state; ``load_train_state`` into
+   a model built from another seed, then 2 steps, must give the
+   uninterrupted run's losses and every parameter, buffer, EMA tensor,
+   optimizer moment and the generator bit for bit; a ``PreemptionHandler``
+   latched after an epoch must raise ``TrainingPreempted`` with the state
+   saved. It prints each file's size and the seconds to save (sync, and
+   what a background save blocks) and to load;
+14. submission flow: ``cli.predict``'s unlabeled-split path (7 fold models
+   from fold directories that link one flagship checkpoint, the trials of
+   the 5 new mice from phase 11's dataset, shared staging, the mean on the
+   card, the deferred fetch); every saved blend must match one
+   ``Predictor``'s prediction of its trial within 1e-6 of its largest
+   value. It prints trials/s and windows/s. The submission file is not
+   written: pandas is not a dependency of the card's machine.
 
 After the counted serving run, one more request runs under
 ``torch.profiler`` and the device time is summed by kernel. The script then
@@ -105,7 +131,10 @@ prints the ``{"kernels": [...]}`` line, the nvidia-smi line again, and last
 (``chip_smoke.json``), the profiler traces (``chip_smoke_trace.json``,
 ``chip_smoke_train_trace.json``) and the fit's logs go to ``--out``, by
 default ``build/chip_smoke/`` in the checkout; the fit's dataset is written
-there too and removed after the fit.
+there too and removed after phase 14. Checkpoints, train states and the
+prediction tree of phases 12-14 go to a temporary directory outside
+``--out``, removed at the end. Each phase 12-14 counts the kernel launches
+of its own run, from 0, and checks them against its forwards and steps.
 """
 
 from __future__ import annotations
@@ -118,6 +147,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -197,6 +227,17 @@ FIT_TRIALS = 3  # labeled trials per mouse: trial i is fold_i under SENSORIUM_FO
 FIT_EPOCHS = 2
 FIT_STEPS = 8  # per epoch
 FIT_THREADS = 8
+FIT_UNLABELED_SPLIT = "live_test_main"  # one unlabeled trial a new mouse, for phase 14
+
+# Phase 12: the reference's own output for a 40-frame trial of the flagship
+# model whose weights procedural_weights.py makes from names and shapes.
+IMPORT_GOLDEN = REPO / "tests" / "golden" / "import_proof_flagship.npz"
+PROCEDURAL_WEIGHTS = REPO / "tests" / "golden" / "procedural_weights.py"
+IMPORT_RTOL = 2e-3  # tests/test_import_torch_flagship.py
+IMPORT_ATOL_SCALE = 2e-4  # of max |expected|
+# Phase 14: one checkpoint for all 7 folds, so the blend equals one Predictor.
+SUBMISSION_EXPERIMENT = "smoke"
+BLEND_REL_TOL = 1e-6
 
 
 def fail(message: str) -> None:
@@ -463,7 +504,7 @@ def serve(record: dict, out_dir: Path) -> dict:
 
     start = time.perf_counter()
     model = get_nn_module(*FLAGSHIP_NN_MODULE, device="cuda", generator=torch.Generator().manual_seed(SEED))
-    predictor = Predictor(model, FLAGSHIP_ARGUS, chunk_size=CHUNK, device="cuda")
+    predictor = Predictor.from_module(model, FLAGSHIP_ARGUS, chunk_size=CHUNK, device="cuda")
     torch.cuda.synchronize()
     params = sum(p.numel() for p in model.parameters())
     print(f"slice: flagship DwiseNeuro bf16, {params} parameters, built in {time.perf_counter() - start:.1f} s")
@@ -1025,7 +1066,9 @@ def run_dwbench(record: dict) -> dict:
 
 def write_fit_dataset(root: Path) -> int:
     """The on-disk layout of the dataset (``<root>/<mouse>/{data,meta}``) at
-    real widths, from the seed; returns the bytes written."""
+    real widths, from the seed: FIT_TRIALS labeled trials a mouse, and for
+    each new mouse one unlabeled trial of FIT_UNLABELED_SPLIT (phase 14);
+    returns the bytes written."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 4)
@@ -1035,8 +1078,9 @@ def write_fit_dataset(root: Path) -> int:
         for sub in ("data/videos", "data/behavior", "data/pupil_center", "data/responses", "meta/trials",
                     "meta/neurons"):
             (mdir / sub).mkdir(parents=True, exist_ok=True)
+        unlabeled = [FIT_UNLABELED_SPLIT] if mouse in constants.new_mice else []
         arrays = {
-            "meta/trials/tiers.npy": np.array(["train"] * FIT_TRIALS),
+            "meta/trials/tiers.npy": np.array(["train"] * FIT_TRIALS + unlabeled),
             "meta/neurons/unit_ids.npy": np.arange(1, neurons + 1, dtype=np.int64),
             "meta/neurons/cell_motor_coordinates.npy": rng.uniform(0, 100, (neurons, 3)).astype(np.float32),
         }
@@ -1045,6 +1089,10 @@ def write_fit_dataset(root: Path) -> int:
             arrays[f"data/behavior/{trial}.npy"] = rng.uniform(0, 5, (2, TRIAL_LENGTH)).astype(np.float32)
             arrays[f"data/pupil_center/{trial}.npy"] = rng.uniform(50, 200, (2, TRIAL_LENGTH)).astype(np.float32)
             arrays[f"data/responses/{trial}.npy"] = rng.gamma(1.5, 1.0, (neurons, TRIAL_LENGTH)).astype(np.float32)
+        for trial in range(FIT_TRIALS, FIT_TRIALS + len(unlabeled)):
+            arrays[f"data/videos/{trial}.npy"] = rng.uniform(0, 255, (*FIT_VIDEO, TRIAL_LENGTH)).astype(np.float32)
+            arrays[f"data/behavior/{trial}.npy"] = rng.uniform(0, 5, (2, TRIAL_LENGTH)).astype(np.float32)
+            arrays[f"data/pupil_center/{trial}.npy"] = rng.uniform(50, 200, (2, TRIAL_LENGTH)).astype(np.float32)
         for name, array in arrays.items():
             np.save(mdir / name, array)
             total += array.nbytes
@@ -1087,8 +1135,9 @@ class TimedLoader:
         self.passes.append(record)
 
 
-def fit(record: dict, out_dir: Path) -> dict:
-    """Phase 11: the flagship fit loop fed from disk."""
+def fit(record: dict, out_dir: Path) -> Path:
+    """Phase 11: the flagship fit loop fed from disk; returns the dataset's
+    root, which phase 14 reads too."""
     import csv
     import os
 
@@ -1204,7 +1253,326 @@ def fit(record: dict, out_dir: Path) -> dict:
         fail(f"fit: launches {launches} over {steps} steps and {val_forwards} val forwards, expected {expected}")
     del model
     torch.cuda.empty_cache()
-    shutil.rmtree(root)  # made anew from the seed by every run
+    return root
+
+
+def reset_launches() -> None:
+    from sensorium_tpu_torch.ops import dw_kernels
+
+    for key in dw_kernels.LAUNCHES:
+        dw_kernels.LAUNCHES[key] = 0
+
+
+def check_forward_launches(phase: str, launches: dict, forwards: int) -> None:
+    """9 spatial and 9 temporal forward launches a chunk forward, nothing else."""
+    blocks = len(FLAGSHIP_NN_MODULE[1]["core_features"])
+    expected = {key: 0 for key in launches}
+    expected.update(dw_spatial_fwd=blocks * forwards, dw_temporal_fwd=blocks * forwards)
+    if launches != expected:
+        fail(f"{phase}: launches {launches} for {forwards} chunk forwards, expected {expected}")
+
+
+def gb(path: Path) -> float:
+    return path.stat().st_size / 1e9
+
+
+def import_proof(record: dict, work: Path) -> dict:
+    """Phase 12: the reference's own sliding-window output of a flagship trial,
+    through a reference-format .pth, ``cli/import_torch`` and ``Predictor(ckpt)``."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from sensorium_tpu_torch.cli.import_torch import convert_checkpoint
+    from sensorium_tpu_torch.infer.predictor import Predictor
+    from sensorium_tpu_torch.ops import dw_kernels
+
+    if not IMPORT_GOLDEN.exists() or not PROCEDURAL_WEIGHTS.exists():
+        fail(f"import proof: {IMPORT_GOLDEN} or {PROCEDURAL_WEIGHTS} is missing")
+    golden = np.load(IMPORT_GOLDEN)
+    spec = importlib.util.spec_from_file_location("procedural_weights", PROCEDURAL_WEIGHTS)
+    procedural = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(procedural)
+
+    start = time.perf_counter()
+    state = procedural.fill_state(json.loads(str(golden["meta_json"])))
+    # The reference's config carries neither the compute dtype nor the remat choice.
+    nn_kwargs = {k: v for k, v in FLAGSHIP_NN_MODULE[1].items() if k not in ("dtype", "remat_blocks")}
+    argus = {**FLAGSHIP_TRAIN_ARGUS, "nn_module": ("dwiseneuro", nn_kwargs), "device": "cuda:0", "amp": True}
+    pth, ckpt = work / "model-017-0.290500.pth", work / "model-017-0.290500.ckpt"
+    torch.save({"model_name": "MouseModel", "params": argus,
+                "nn_state_dict": {key: torch.from_numpy(value) for key, value in state.items()}}, pth)
+    values = sum(v.size for v in state.values())
+    del state
+    made_s = time.perf_counter() - start
+    start = time.perf_counter()
+    convert_checkpoint(pth, ckpt, dtype="float32")
+    convert_s = time.perf_counter() - start
+    pth_gb = gb(pth)
+    pth.unlink()
+
+    start = time.perf_counter()
+    predictor = Predictor(ckpt, chunk_size=CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - start
+    length = golden["video"].shape[-1]
+    forwards = math.ceil(len(predictor.indexes_generator.valid_anchors(length)) / CHUNK)
+    reset_launches()
+    start = time.perf_counter()
+    prediction = predictor.predict_trial(golden["video"], golden["behavior"], golden["pupil_center"],
+                                         mouse_index=int(golden["mouse_index"]))
+    predict_s = time.perf_counter() - start
+    launches = dict(dw_kernels.LAUNCHES)
+    expected = golden["prediction"]
+    scale = float(np.max(np.abs(expected)))
+    if prediction.shape != expected.shape:
+        fail(f"import proof: prediction {prediction.shape}, the reference's {expected.shape}")
+    diff = np.abs(prediction.astype(np.float64) - expected)
+    max_abs = float(diff.max())
+    max_rel = max_abs / scale  # relative to the largest value
+    # Elementwise against the tolerance, as np.testing.assert_allclose holds it.
+    worst = float(np.max(diff / (IMPORT_ATOL_SCALE * scale + IMPORT_RTOL * np.abs(expected))))
+    within = bool(np.isfinite(worst) and worst <= 1.0)
+    result = {"torch_values": values, "pth_gb": pth_gb, "ckpt_gb": gb(ckpt), "make_pth_seconds": made_s,
+              "convert_seconds": convert_s, "predictor_load_seconds": load_s, "predict_seconds": predict_s,
+              "shape": list(prediction.shape), "max_abs_err": max_abs, "max_rel_err": max_rel,
+              "worst_over_tolerance": worst, "max_abs_expected": scale, "launches": launches}
+    record["import_proof"] = result
+    print(f"import proof: {values / 1e6:.1f}M reference values ({pth_gb:.3f} GB .pth made in {made_s:.1f} s), "
+          f"converted in {convert_s:.1f} s to a {result['ckpt_gb']:.3f} GB checkpoint, Predictor(ckpt) loaded in "
+          f"{load_s:.1f} s; fp32 prediction {tuple(prediction.shape)} of the golden {length}-frame trial against "
+          f"the reference's: max abs err {max_abs:.4g}, relative to max |expected| {scale:.4g}: {max_rel:.3g}; "
+          f"worst element at {worst:.3g} of its tolerance (rtol {IMPORT_RTOL}, atol {IMPORT_ATOL_SCALE} x max)",
+          flush=True)
+    if not within:
+        fail(f"import proof: the prediction disagrees with the reference's (max abs {max_abs}, rel {max_rel})")
+    check_forward_launches("import proof", launches, forwards)
+    ckpt.unlink()
+    del predictor
+    torch.cuda.empty_cache()
+    return launches
+
+
+def checkpoints(record: dict, work: Path) -> dict:
+    """Phase 13: checkpoints and resume of the flagship MouseModel."""
+    import torch
+
+    from sensorium_tpu_torch.engine import checkpoint as ckpt
+    from sensorium_tpu_torch.engine.callbacks import Callback
+    from sensorium_tpu_torch.engine.model import MouseModel, load_model
+    from sensorium_tpu_torch.engine.preemption import PreemptionHandler, TrainingPreempted
+    from sensorium_tpu_torch.ops import dw_kernels
+
+    class PreemptAfterFirstEpoch(Callback):
+        def __init__(self, handler):
+            self.handler = handler
+
+        def epoch_complete(self, state) -> None:
+            if state.global_epoch == 0:
+                self.handler.triggered = True
+
+    def flagship(seed: int) -> MouseModel:
+        model = MouseModel(FLAGSHIP_TRAIN_ARGUS, device="cuda")
+        model.set_ema(EMA_DECAY)
+        model.build_state(seed=seed, learning_rate=get_lr(3e-4, TRAIN_BATCH))
+        return model
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - start
+
+    def unequal(a: dict, b: dict) -> list[str]:
+        return [name for name in a if not torch.equal(a[name], b[name])]
+
+    def full_state(model: MouseModel) -> dict:
+        state = {f"model.{k}": v for k, v in model.state.model.state_dict().items()}
+        state.update({f"ema.{k}": v for k, v in model.state.ema_model.state_dict().items()})
+        for index, entry in model.state.optimizer.state_dict()["state"].items():
+            state.update({f"optimizer.{index}.{key}": value for key, value in entry.items()})
+        state["generator"] = model.state.generator.get_state()
+        return state
+
+    batch = synthetic_batch(TRAIN_BATCH)
+    reset_launches()
+    result: dict = {}
+    a = flagship(SEED)
+    a.train_step(batch)
+
+    model_ckpt = work / "model-000-0.000000.ckpt"
+    result["model_save_sync_seconds"] = timed(lambda: a.save(model_ckpt))
+    result["model_gb"] = gb(model_ckpt)
+    loaded = {}
+    result["model_load_seconds"] = timed(lambda: loaded.update(model=load_model(model_ckpt, device="cuda")))
+    bad = unequal(a.state.eval_model.state_dict(), loaded["model"].state.model.state_dict())
+    del loaded
+    if bad:
+        fail(f"checkpoints: load_model differs from the saved EMA weights at {bad[:5]}")
+    background = work / "background.ckpt"
+    result["model_save_background_blocking_seconds"] = timed(lambda: a.save(background, background=True))
+    a.train_step(batch)  # updates the EMA in place while the write may be in flight
+    result["model_background_flush_seconds"] = timed(ckpt.flush_pending_saves)
+    if background.read_bytes() != model_ckpt.read_bytes():
+        fail("checkpoints: the background save differs from the sync save of the same weights")
+    background.unlink()
+    model_ckpt.unlink()
+
+    state_ckpt, state_background = work / "train_state.ckpt", work / "train_state_background.ckpt"
+    result["state_save_sync_seconds"] = timed(lambda: a.save_train_state(state_ckpt, extra={"epoch": 0}))
+    result["state_gb"] = gb(state_ckpt)
+    result["state_save_background_blocking_seconds"] = timed(
+        lambda: a.save_train_state(state_background, extra={"epoch": 0}, background=True))
+    losses_a = [float(a.train_step(batch))]
+    result["state_background_flush_seconds"] = timed(ckpt.flush_pending_saves)
+    if state_background.read_bytes() != state_ckpt.read_bytes():
+        fail("checkpoints: the background train state differs from the sync save of the same state")
+    state_background.unlink()
+    losses_a.append(float(a.train_step(batch)))
+
+    b = flagship(SEED + 1)
+    result["state_load_seconds"] = timed(lambda: b.load_train_state(state_ckpt))
+    state_ckpt.unlink()
+    losses_b = [float(b.train_step(batch)) for _ in range(2)]
+    bad = unequal(full_state(a), full_state(b))
+    result.update(losses_uninterrupted=losses_a, losses_resumed=losses_b, resume_unequal_tensors=bad)
+    if losses_a != losses_b or bad:
+        fail(f"checkpoints: 2 steps after load_train_state differ from the uninterrupted run: losses "
+             f"{losses_b} against {losses_a}, tensors {bad[:5]} ({len(bad)})")
+    del a
+    torch.cuda.empty_cache()
+
+    preempted = work / "preempted.ckpt"
+    with PreemptionHandler() as handler:
+        try:
+            b.fit([batch], num_epochs=2, callbacks=[PreemptAfterFirstEpoch(handler)], preemption=handler,
+                  preemption_save_path=preempted)
+        except TrainingPreempted:
+            result["preempted"] = True
+    if not result.get("preempted") or not preempted.exists():
+        fail("checkpoints: the preemption signal after epoch 0 did not save the state and raise TrainingPreempted")
+    c = flagship(SEED + 2)
+    extra = c.load_train_state(preempted)
+    preempted.unlink()
+    bad = unequal(full_state(b), full_state(c))
+    if extra != {"epoch": 0} or c.state.step != b.state.step or bad:
+        fail(f"checkpoints: the preemption save restores extra {extra}, step {c.state.step} "
+             f"(expected {b.state.step}), unequal tensors {bad[:5]}")
+    launches = dict(dw_kernels.LAUNCHES)
+    steps = 4 + 2 + 1  # a: 4, b: 2 after the resume and 1 in the preempted fit
+    expected = {key: 0 for key in launches}
+    expected.update({key: count * steps for key, count in expected_train_launches().items()})
+    result["launches"] = launches
+    record["checkpoints"] = result
+    print(f"checkpoints: model {result['model_gb']:.3f} GB: save {result['model_save_sync_seconds']:.2f} s sync, "
+          f"{result['model_save_background_blocking_seconds']:.2f} s blocking in the background (then "
+          f"{result['model_background_flush_seconds']:.2f} s to flush after a step), load_model "
+          f"{result['model_load_seconds']:.2f} s, bitwise equal; train state {result['state_gb']:.3f} GB: save "
+          f"{result['state_save_sync_seconds']:.2f} s sync, {result['state_save_background_blocking_seconds']:.2f} s "
+          f"blocking in the background (flush {result['state_background_flush_seconds']:.2f} s), load "
+          f"{result['state_load_seconds']:.2f} s; background files equal the sync ones byte for byte", flush=True)
+    print(f"checkpoints: resumed from another seed, 2 steps: losses {losses_b} == uninterrupted {losses_a}, "
+          f"every parameter, buffer, EMA tensor, moment and the generator bitwise equal; preemption after epoch 0 "
+          f"raised TrainingPreempted with the state saved (step {c.state.step}); launches {launches}", flush=True)
+    if launches != expected:
+        fail(f"checkpoints: launches {launches} over {steps} steps, expected {expected}")
+    del b, c
+    torch.cuda.empty_cache()
+    return launches
+
+
+def point_data_dir(data_dir: Path) -> None:
+    """What ``SENSORIUM_DATA_DIR=data_dir`` gives when the constants are imported."""
+    constants.data_dir = data_dir
+    constants.sensorium_dir = data_dir / "sensorium_all_2023"
+    constants.experiments_dir = data_dir / "experiments"
+    constants.predictions_dir = data_dir / "predictions"
+
+
+def submission_flow(record: dict, fit_root: Path, work: Path) -> dict:
+    """Phase 14: ``cli.predict -e smoke -s live_test_main`` over 7 fold
+    directories that link one flagship checkpoint (no submission file:
+    pandas is not installed on the card's machine)."""
+    import numpy as np
+    import torch
+
+    from sensorium_tpu_torch.cli.predict import predict_unlabeled_split
+    from sensorium_tpu_torch.compat import to_jax_variables
+    from sensorium_tpu_torch.data import mouse_data
+    from sensorium_tpu_torch.data.indexes import WindowIndexer
+    from sensorium_tpu_torch.engine.checkpoint import save_model_checkpoint
+    from sensorium_tpu_torch.infer.predictor import Predictor, _load_trial_arrays
+    from sensorium_tpu_torch.models.registry import get_nn_module
+    from sensorium_tpu_torch.ops import dw_kernels
+
+    data_dir = work / "data"
+    data_dir.mkdir()
+    (data_dir / "sensorium_all_2023").symlink_to(fit_root.resolve(), target_is_directory=True)
+    module = get_nn_module(*FLAGSHIP_NN_MODULE, device="cuda", generator=torch.Generator().manual_seed(SEED + 5))
+    checkpoint = work / "model-020-0.300000.ckpt"
+    save_model_checkpoint(checkpoint, FLAGSHIP_ARGUS, to_jax_variables(module))
+    del module
+    for fold in constants.folds_splits:
+        fold_dir = data_dir / "experiments" / SUBMISSION_EXPERIMENT / fold
+        fold_dir.mkdir(parents=True)
+        (fold_dir / checkpoint.name).symlink_to(checkpoint)
+    saved = (constants.data_dir, constants.sensorium_dir, constants.experiments_dir, constants.predictions_dir)
+    point_data_dir(data_dir)
+    mouse_data.get_folds_tiers.cache_clear()
+
+    trials = {m: mouse_data.get_mouse_data(m, [FIT_UNLABELED_SPLIT])["trials"] for m in constants.new_mice}
+    count = sum(len(t) for t in trials.values())
+    stack = FLAGSHIP_ARGUS["frame_stack"]
+    windows = len(WindowIndexer(stack["size"], stack["step"], stack["position"]).valid_anchors(TRIAL_LENGTH))
+    folds = len(constants.folds_splits)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    predict_unlabeled_split(SUBMISSION_EXPERIMENT, FIT_UNLABELED_SPLIT, "new", chunk_size=CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = dict(dw_kernels.LAUNCHES)
+
+    start = time.perf_counter()
+    reference = Predictor(checkpoint, chunk_size=CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    reference_load_s = time.perf_counter() - start
+    worst, reference_s = 0.0, 0.0
+    for mouse, mouse_trials in trials.items():
+        for trial_data in mouse_trials:
+            path = constants.predictions_dir / SUBMISSION_EXPERIMENT / FIT_UNLABELED_SPLIT / mouse / \
+                f"{trial_data['trial_id']}.npy"
+            saved_blend = np.load(path)
+            arrays = _load_trial_arrays(trial_data)
+            start = time.perf_counter()
+            expected = reference.predict_trial(*arrays, constants.mouse2index[mouse])
+            reference_s += time.perf_counter() - start
+            if saved_blend.shape != expected.shape or not np.all(np.isfinite(saved_blend)):
+                fail(f"submission flow: {path.name} of {mouse} is {saved_blend.shape}, expected {expected.shape}")
+            worst = max(worst, float(np.max(np.abs(saved_blend - expected)) / np.max(np.abs(expected))))
+    forwards_per_trial = math.ceil(windows / CHUNK)
+    result = {"trials": count, "fold_models": folds, "window_forwards": count * folds * windows,
+              "wall_seconds": wall, "trials_per_second": count / wall,
+              "windows_per_second": count * folds * windows / wall, "max_rel_err_vs_one_predictor": worst,
+              "checkpoint_gb": gb(checkpoint), "one_predictor_load_seconds": reference_load_s,
+              "one_predictor_windows_per_second": count * windows / reference_s, "launches": launches}
+    record["submission_flow"] = result
+    print(f"submission flow: {count} trials x {folds} fold models x {windows} windows = "
+          f"{result['window_forwards']} window forwards in {wall:.2f} s (7 checkpoint loads included): "
+          f"{result['trials_per_second']:.3f} trials/s, {result['windows_per_second']:.1f} windows/s; one "
+          f"Predictor: checkpoint loaded in {reference_load_s:.2f} s, the same trials at "
+          f"{result['one_predictor_windows_per_second']:.1f} windows/s (blocking per trial); "
+          f"the saved blends against one Predictor: max |diff| / max |expected| {worst:.3g} "
+          f"(tolerance {BLEND_REL_TOL}); launches {launches}", flush=True)
+    if not worst <= BLEND_REL_TOL:
+        fail(f"submission flow: the 7-fold blend differs from one Predictor by {worst} relative")
+    check_forward_launches("submission flow", launches, count * folds * forwards_per_trial)
+    constants.data_dir, constants.sensorium_dir, constants.experiments_dir, constants.predictions_dir = saved
+    mouse_data.get_folds_tiers.cache_clear()
+    del reference
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1231,11 +1599,12 @@ def _summed(rows: list[dict], name: str) -> dict:
 
 
 def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused_rows: list[dict],
-                   fused_launches: dict) -> list[dict]:
+                   fused_launches: dict, path_launches: dict) -> list[dict]:
     """One entry per kernel: sums over the calls of one flagship training step
     (batch 32 x 16 frames, the shapes of a 32-window chunk forward), bf16.
     ``launches`` counts the timed train steps, ``launches_serve`` the counted
-    serving run; the fused kernel's launches are the dwbench run's."""
+    serving run, ``launches_<path>`` the runs of phases 12-14; the fused
+    kernel's launches are the dwbench run's."""
     replaces = {
         "dw_spatial_fwd": ("dw_conv.cu", "sensorium_tpu/ops/pallas_dw.py:115"),
         "dw_temporal_fwd": ("dw_conv.cu", "sensorium_tpu/ops/pallas_dw.py:355"),
@@ -1259,6 +1628,7 @@ def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused
             "scope": "sum over the 9 blocks' calls of one flagship train step (32 clips x 16 frames), bf16; "
                      f"launches over {TIMED_STEPS} train steps",
             "launches_serve": serve_launches[name],
+            **{f"launches_{path}": counts[name] for path, counts in path_launches.items()},
         })
     name = "fused_bn_silu_dw_spatial"
     out.append({
@@ -1326,9 +1696,22 @@ def main() -> int:
     fused_rows = check_fused_kernel(peaks)
     record["fused_kernel"] = fused_rows
     fused_launches = run_dwbench(record)
-    fit(record, args.out)
+    fit_root = fit(record, args.out)
+    # Checkpoints, train states and the prediction tree are written outside --out.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        work = Path(work)
+        path_launches = {}
+        for name, key, phase in (("import", "import_proof", lambda: import_proof(record, work)),
+                                 ("resume", "checkpoints", lambda: checkpoints(record, work)),
+                                 ("submission", "submission_flow", lambda: submission_flow(record, fit_root, work))):
+            start = time.perf_counter()
+            path_launches[name] = phase()
+            record[key]["phase_seconds"] = time.perf_counter() - start
+            print(f"{key}: phase took {record[key]['phase_seconds']:.1f} s", flush=True)
+    shutil.rmtree(fit_root)  # made anew from the seed by every run
 
-    summary = kernel_summary(rows + backward_rows, train_launches, serve_launches, fused_rows, fused_launches)
+    summary = kernel_summary(rows + backward_rows, train_launches, serve_launches, fused_rows, fused_launches,
+                             path_launches)
     record["summary"] = summary
     (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 

@@ -1,10 +1,11 @@
-"""Move weights and training state from the JAX package into the port.
+"""Move weights and training state between the JAX package and the port.
 
 The port's parameters and BN statistics keep the JAX tree's names and
 shapes (``models/dwiseneuro.py``), so the conversion flattens the nested
-``params`` and ``batch_stats`` dicts with ``.`` and changes no layout. A
-parity failure after loading therefore points at the compute, not at this
-file. Nothing here imports JAX: the trees arrive as nested dicts of arrays.
+``params`` and ``batch_stats`` dicts with ``.`` (``to_jax_variables``
+splits them again) and changes no layout. A parity failure after loading
+therefore points at the compute, not at this file. Nothing here imports
+JAX: the trees arrive as nested dicts of arrays.
 """
 
 from __future__ import annotations
@@ -33,6 +34,30 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping) -> dict[str, torch
     _flatten(params, "", state)
     _flatten(batch_stats, "", state)
     return state
+
+
+def nest(flat: Mapping[str, object]) -> dict:
+    """``{"a.b": v}`` -> ``{"a": {"b": v}}``, keys sorted at every level."""
+    tree: dict = {}
+    for name in sorted(flat):
+        *parents, leaf = name.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = flat[name]
+    return tree
+
+
+def to_jax_variables(module: torch.nn.Module) -> dict[str, dict]:
+    """The inverse of ``from_jax_variables``: ``{"params": nested,
+    "batch_stats": nested}`` of the module's parameters and persistent
+    buffers (the tensors themselves, not copies)."""
+    buffers = dict(module.named_buffers())
+    persistent = {name: buffers[name] for name in module.state_dict() if name in buffers}
+    return {
+        "params": nest({name: p.detach() for name, p in module.named_parameters()}),
+        "batch_stats": nest(persistent),
+    }
 
 
 def _adam_moments(opt_state):

@@ -1,8 +1,8 @@
 """Dataset constants of the Sensorium 2023 competition.
 
 A copy of ``sensorium_tpu/constants.py``: mouse identifiers, neuron counts,
-data layout on disk, fold and split names and the submission cut. The port
-imports nothing of the JAX package.
+data layout on disk, experiment and prediction directories, fold and split
+names and the submission cut. The port imports nothing of the JAX package.
 
 The filesystem roots come from environment variables when the module is
 imported:
@@ -10,8 +10,9 @@ imported:
 * ``SENSORIUM_WORK_DIR``: base working directory (default ``./``);
 * ``SENSORIUM_DATA_DIR``: dataset root (default ``<work>/data``).
 
-The data modules read ``sensorium_dir`` when they are called, so a caller may
-point it elsewhere by assigning the attribute.
+The data, inference and CLI modules read ``sensorium_dir``,
+``experiments_dir`` and ``predictions_dir`` when they are called, so a
+caller may point them elsewhere by assigning the attributes.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ def _env_path(name: str, default: Path) -> Path:
 work_dir: Path = _env_path("SENSORIUM_WORK_DIR", Path("."))
 data_dir: Path = _env_path("SENSORIUM_DATA_DIR", work_dir / "data")
 sensorium_dir: Path = data_dir / "sensorium_all_2023"
+experiments_dir: Path = data_dir / "experiments"
+predictions_dir: Path = data_dir / "predictions"
 
 # Five mice recorded for the 2023 competition ("new") and five carried over
 # from the 2022 edition ("old").  Names are the official dataset keys.
@@ -48,6 +51,8 @@ old_mice = [
     "dynamic29514-2-9-Video-8744edeac3b4d1ce16b680916b5267ce",
 ]
 old_num_neurons = [7440, 7928, 8285, 7671, 7495]
+
+dataset2mice = {"new": new_mice, "old": old_mice}
 
 mice = new_mice + old_mice
 num_neurons = new_num_neurons + old_num_neurons

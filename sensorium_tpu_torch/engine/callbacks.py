@@ -1,9 +1,9 @@
 """Training callbacks (counterpart of ``sensorium_tpu/engine/callbacks.py``).
 
 The callbacks of the fit loop: logging to ``log.txt``, ``log.csv`` and
-``log.jsonl``, early stopping and an epoch timer. The learning rate is a
-schedule of the update count inside the train step, not a callback.
-``Checkpoint`` comes with the port's checkpoint I/O.
+``log.jsonl``, best-k checkpoints, early stopping and an epoch timer. The
+learning rate is a schedule of the update count inside the train step, not
+a callback.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
+
+from sensorium_tpu_torch.engine.checkpoint import flush_pending_saves
 
 _FORMAT = "%(asctime)s %(levelname)s %(message)s"
 
@@ -159,6 +161,75 @@ class LoggingToJSONL(Callback):
             handle.write(json.dumps(record) + "\n")
             handle.flush()
         self._initialized = True
+
+
+class Checkpoint(Callback):
+    """Best-k checkpoints of the eval (EMA) weights.
+
+    After each epoch that has the ``monitor`` metric, saves the model as
+    ``file_format`` (fields: ``epoch``, the metrics) and keeps the
+    ``max_saves`` best by ``monitor``; ``better`` is "min", "max" or "auto"
+    (min for a loss). With ``save_train_state`` it also writes the resume
+    state to ``train_state_name``; ``save_model=False`` writes only that.
+    ``background=True`` moves serialization and the writes off the loop.
+    """
+
+    def __init__(
+        self,
+        save_dir,
+        file_format: str = "model-{epoch:03d}-{val_corr:.6f}.ckpt",
+        max_saves: int = 1,
+        monitor: str = "val_corr",
+        better: str = "max",
+        save_train_state: bool = True,
+        background: bool = False,
+        train_state_name: str = "train_state.ckpt",
+        save_model: bool = True,
+    ):
+        # Anything else ("Max", "maximize") would sort the wrong way and keep the worst.
+        if better not in ("min", "max", "auto"):
+            raise ValueError(f"better must be min/max/auto, got {better!r}")
+        if better == "auto":
+            better = "min" if "loss" in monitor else "max"
+        self.save_dir = Path(save_dir)
+        self.file_format = file_format
+        self.max_saves = max_saves
+        self.monitor = monitor
+        self.better = better
+        self.save_train_state = save_train_state
+        self.train_state_name = train_state_name
+        self.save_model = save_model
+        self.background = background
+        self._saved: list[tuple[float, Path]] = []
+
+    def epoch_complete(self, state: EngineState) -> None:
+        if self.monitor not in state.metrics:
+            return
+        score = float(state.metrics[self.monitor])
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        fields = {"epoch": state.global_epoch, self.monitor: score, **state.metrics}
+        file_path = self.save_dir / self.file_format.format(**fields)
+        if self.save_model:
+            state.model.save(file_path, background=self.background)
+            state.logger.info(f"Model saved to '{file_path}'")
+        if self.save_train_state:
+            state.model.save_train_state(
+                self.save_dir / self.train_state_name,
+                extra={"epoch": state.global_epoch, self.monitor: score},
+                background=self.background,
+            )
+        if not self.save_model:
+            return
+        self._saved.append((score, file_path))
+        self._saved.sort(key=lambda item: item[0], reverse=self.better == "max")
+        while len(self._saved) > self.max_saves:
+            _, worst_path = self._saved.pop()
+            if self.background and worst_path == file_path:
+                # This epoch's own save is the worst and may still be in
+                # flight: join it, or its rename would bring the file back.
+                flush_pending_saves()
+            worst_path.unlink(missing_ok=True)
+            state.logger.info(f"Model removed '{worst_path}'")
 
 
 class EarlyStopping(Callback):

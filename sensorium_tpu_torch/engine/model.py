@@ -1,9 +1,12 @@
-"""The training engine's model object: ``MouseModel``.
+"""The training engine's model object: ``MouseModel``, and ``load_model``.
 
-Counterpart of ``sensorium_tpu/engine/model.py`` (construction from a
+Counterpart of ``sensorium_tpu/engine/model.py``: construction from a
 config's ``argus_params``, EMA, distillation, the train / val / predict
-steps, the fit loop). Not yet here: ``init_from_checkpoint``, checkpoint I/O
-and preemption.
+steps, the fit loop with preemption, checkpoints and resume. The files are
+the JAX package's (``engine/checkpoint.py``): a model checkpoint either
+package wrote loads in the other. A train state keeps JAX's names for the
+step, weights and EMA, and the port's own for the optimizer's moments and
+the dropout generator, which JAX does not share.
 
     model = MouseModel(argus_params)           # on the card; device="cpu" to ask for the CPU
     model.set_ema(0.999)
@@ -11,23 +14,31 @@ and preemption.
     loss = model.train_step(batch)             # a MiceBatch of numpy arrays
     loss, prediction, targets, weights = model.val_step(batch)
     model.fit(train_loader, val_loader, num_epochs=2, callbacks=[...], metrics=[CorrelationMetric()])
+    model.save("model-000-0.123456.ckpt")      # the eval (EMA) weights and the config
+    model.save_train_state("train_state.ckpt", extra={"epoch": 0})
+    model.load_train_state("train_state.ckpt") # into a model built from the same config
+    restored = load_model("model-000-0.123456.ckpt", device="cuda")
 """
 
 from __future__ import annotations
 
 import copy
 import os
+from pathlib import Path
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from sensorium_tpu_torch.compat.jax_weights import from_jax_variables, nest, to_jax_variables
 from sensorium_tpu_torch.data.datasets import MiceBatch
+from sensorium_tpu_torch.engine import checkpoint as ckpt
 from sensorium_tpu_torch.engine.callbacks import Callback, EngineState, build_logger
 from sensorium_tpu_torch.engine.losses import get_loss
 from sensorium_tpu_torch.engine.metrics import CorrelationMetric
 from sensorium_tpu_torch.engine.optimizers import get_optimizer
+from sensorium_tpu_torch.engine.preemption import PreemptionHandler, TrainingPreempted
 from sensorium_tpu_torch.engine.state import TrainState
 from sensorium_tpu_torch.engine.steps import make_predict_step, make_train_step, make_val_step
 from sensorium_tpu_torch.models.dwiseneuro import neuron_validity_mask
@@ -119,6 +130,27 @@ class MouseModel:
         self._train_step = None
         return self.state
 
+    def init_from_checkpoint(self, file_path) -> None:
+        """Warm start: the weights (and EMA copy) of a model checkpoint
+        replace the freshly built ones; the optimizer, update count and
+        generator stay as ``build_state`` made them. Raises ``ValueError``
+        if a leaf's shape differs from the built model's."""
+        if self.state is None:
+            raise RuntimeError("Call build_state() before init_from_checkpoint()")
+        nn_state = ckpt.load_model_checkpoint(file_path)["nn_state"]
+        weights = from_jax_variables(nn_state["params"], nn_state.get("batch_stats", {}))
+        current = self.state.model.state_dict()
+        for name, value in weights.items():
+            if name in current and tuple(value.shape) != tuple(current[name].shape):
+                raise ValueError(
+                    f"init_from checkpoint leaf {name} has shape {tuple(value.shape)}, the built model "
+                    f"{tuple(current[name].shape)}: config/checkpoint architecture mismatch"
+                )
+        self.state.model.load_state_dict(weights, strict=True)
+        if self.state.ema_model is not None:
+            # load_state_dict copies: the EMA keeps tensors of its own.
+            self.state.ema_model.load_state_dict(weights, strict=True)
+
     # ---------------------------------------------------------------- steps
 
     def _ensure_train_step(self) -> Callable:
@@ -203,18 +235,38 @@ class MouseModel:
         metrics: Sequence[CorrelationMetric] = (),
         stage: str = "train",
         start_epoch: int = 0,
+        preemption: PreemptionHandler | None = None,
+        preemption_save_path=None,
     ) -> None:
         """The train and validation loop: per epoch, every batch of
         ``train_loader`` through ``train_step``, then (with a ``val_loader``)
         every batch through ``val_step`` with the metrics, then the
         callbacks. ``fit_complete`` runs on every callback however the loop
-        ends; one that raises is logged and does not hide the loop's error."""
+        ends; one that raises is logged and does not hide the loop's error.
+
+        With ``preemption`` (a ``PreemptionHandler``), a latched signal is
+        acted on after each train step, after validation and after the
+        epoch's callbacks: the train state goes to ``preemption_save_path``
+        (if given), with ``extra["epoch"]`` the last epoch completed, and
+        ``TrainingPreempted`` is raised. An epoch cut short is redone on
+        resume."""
         if self.state is None:
             raise RuntimeError("Call build_state() before fit()")
         engine_state = EngineState(model=self, stage=stage, logger=self.logger)
+
+        def check_preempted(epochs_behind: int = 1) -> None:
+            """``epochs_behind`` 1 inside an epoch, 0 once its callbacks ran."""
+            if preemption is None or not preemption.triggered:
+                return
+            epoch_done = engine_state.global_epoch - epochs_behind
+            if preemption_save_path is not None:
+                self.save_train_state(preemption_save_path, extra={"epoch": epoch_done})
+            self.logger.info(f"Preemption signal: state saved (epoch {epoch_done} complete), exiting")
+            raise TrainingPreempted(preemption_save_path)
+
         try:
             self._fit_epochs(engine_state, train_loader, val_loader, num_epochs, callbacks, metrics, stage,
-                             start_epoch)
+                             start_epoch, check_preempted)
         finally:
             for callback in callbacks:
                 try:
@@ -223,7 +275,7 @@ class MouseModel:
                     self.logger.exception(f"fit_complete failed in {type(callback).__name__}; continuing")
 
     def _fit_epochs(self, engine_state, train_loader, val_loader, num_epochs, callbacks, metrics, stage,
-                    start_epoch) -> None:
+                    start_epoch, check_preempted) -> None:
         for epoch in range(num_epochs):
             engine_state.epoch = epoch
             engine_state.global_epoch = start_epoch + epoch
@@ -235,7 +287,10 @@ class MouseModel:
                 train_loader.set_epoch(engine_state.global_epoch)
             # The losses stay on the device until the epoch ends: one copy
             # to the host per epoch, not a wait for the card every step.
-            losses = [self.train_step(batch) for batch in train_loader]
+            losses = []
+            for batch in train_loader:
+                losses.append(self.train_step(batch))
+                check_preempted()
             engine_state.metrics["train_loss"] = _mean_on_host(losses)
 
             if val_loader is not None:
@@ -255,6 +310,7 @@ class MouseModel:
                 engine_state.metrics["val_loss"] = _mean_on_host(val_losses)
                 for metric in metrics:
                     engine_state.metrics.update(metric.epoch_metrics(prefix="val_"))
+                check_preempted()
 
             lr = self._current_lr()
             if lr is not None:
@@ -265,6 +321,7 @@ class MouseModel:
             )
             for callback in callbacks:
                 callback.epoch_complete(engine_state)
+            check_preempted(epochs_behind=0)
             if engine_state.stopped:
                 break
 
@@ -273,6 +330,106 @@ class MouseModel:
         if self.schedule is None:
             return None
         return float(self.schedule(self.state.step))
+
+    # ----------------------------------------------------------- checkpoint
+
+    def eval_variables(self) -> dict:
+        """``{"params", "batch_stats"}`` of the eval (EMA) weights, nested in
+        the JAX tree's names (the tensors themselves)."""
+        return to_jax_variables(self.state.eval_model)
+
+    def save(self, file_path, background: bool = False) -> None:
+        """Write a model checkpoint of the eval (EMA) weights. The copy to
+        the host is made before this returns; with ``background`` the
+        serialization and the write go on in a thread."""
+        ckpt.save_model_checkpoint(file_path, self.params, self.eval_variables(), background=background)
+
+    def _train_state_tree(self) -> dict:
+        state = self.state
+        live = to_jax_variables(state.model)
+        ema = to_jax_variables(state.ema_model) if state.ema_model is not None else None
+        names = [name for name, _ in state.model.named_parameters()]
+        per_key: dict[str, dict] = {}
+        for index, entry in state.optimizer.state_dict()["state"].items():
+            for key, value in entry.items():
+                per_key.setdefault(key, {})[names[index]] = value
+        return {
+            "step": np.asarray(state.step, np.int32),
+            "params": live["params"],
+            "batch_stats": live["batch_stats"],
+            "ema_params": None if ema is None else ema["params"],
+            "ema_batch_stats": None if ema is None else ema["batch_stats"],
+            # The port's own: torch.optim's per-parameter state and the
+            # dropout generator, which the JAX package does not share.
+            "optimizer": {key: nest(flat) for key, flat in per_key.items()},
+            "generator": state.generator.get_state(),
+        }
+
+    def save_train_state(self, file_path, extra: dict | None = None, background: bool = False) -> None:
+        """Write the resume state: weights, BN statistics, EMA, optimizer
+        state, the generator and the update count, with ``extra``."""
+        if self.state is None:
+            raise RuntimeError("Call build_state() before save_train_state()")
+        _refuse_sharded(file_path)
+        ckpt.save_train_state(file_path, self._train_state_tree(), self.params, extra=extra, background=background)
+
+    def load_train_state(self, file_path) -> dict:
+        """Restore a state ``save_train_state`` wrote into this model, built
+        from the same config; returns its ``extra``."""
+        if self.state is None:
+            raise RuntimeError("Call build_state() before load_train_state()")
+        _refuse_sharded(file_path)
+        tree, extra = ckpt.load_train_state(file_path)
+        state = self.state
+        if (tree["ema_params"] is None) != (state.ema_model is None):
+            raise ValueError("the train state and this model must both keep an EMA, or neither")
+        state.model.load_state_dict(from_jax_variables(tree["params"], tree["batch_stats"]), strict=True)
+        if state.ema_model is not None:
+            state.ema_model.load_state_dict(
+                from_jax_variables(tree["ema_params"], tree["ema_batch_stats"]), strict=True)
+        index = {name: i for i, (name, _) in enumerate(state.model.named_parameters())}
+        per_param: dict[int, dict] = {}
+        for key, nested in tree["optimizer"].items():
+            for name, value in _leaves(nested):
+                per_param.setdefault(index[name], {})[key] = value
+        # load_state_dict moves the moments to their parameters' device and dtype.
+        state.optimizer.load_state_dict({"state": per_param,
+                                         "param_groups": state.optimizer.state_dict()["param_groups"]})
+        state.generator.set_state(ckpt.as_tensor(tree["generator"]))
+        state.step = int(tree["step"])
+        return extra
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    """``(dotted name, leaf)`` of a nested dict; array leaves as tensors."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{key}.")
+        else:
+            is_array = isinstance(value, (np.ndarray, np.generic, torch.Tensor))
+            yield f"{prefix}{key}", ckpt.as_tensor(value) if is_array else value
+
+
+def _refuse_sharded(file_path) -> None:
+    if Path(file_path).suffix == ".orbax":
+        raise NotImplementedError(
+            "the sharded (orbax) train-state format comes with multi-GPU training (ROADMAP.md A.4)")
+
+
+def load_model(file_path, device: str | torch.device = "cuda") -> MouseModel:
+    """A ``MouseModel`` from a model checkpoint (the port's or the JAX
+    package's): the module built from the checkpoint's config, its saved
+    eval weights loaded, on ``device``; ``predict`` and ``val_step`` run them."""
+    device = resolve_device(device)
+    payload = ckpt.load_model_checkpoint(file_path)
+    model = MouseModel(payload["params"], device=device)
+    nn_state = payload["nn_state"]
+    module = get_nn_module(model.nn_name, model.nn_params, device=model.device)
+    module.load_state_dict(from_jax_variables(nn_state["params"], nn_state.get("batch_stats", {})), strict=True)
+    model.nn_module = module
+    model.state = TrainState(step=0, model=module, optimizer=None, ema_model=None,
+                             generator=torch.Generator(device=model.device).manual_seed(0))
+    return model
 
 
 def _mean_on_host(values: list[torch.Tensor]) -> float:

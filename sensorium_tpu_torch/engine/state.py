@@ -19,7 +19,7 @@ from torch import nn
 class TrainState:
     step: int  # optimizer updates done so far (the schedule's count)
     model: nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: torch.optim.Optimizer | None  # None in a model loaded for inference (load_model)
     ema_model: nn.Module | None  # EMA of the parameters and buffers, or None
     generator: torch.Generator  # on the model's device
 

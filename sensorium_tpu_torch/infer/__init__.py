@@ -1,1 +1,2 @@
-"""Whole-trial inference of the port."""
+"""Whole-trial inference of the port: the Predictor, the fold blend,
+evaluation, submissions and ensembles."""

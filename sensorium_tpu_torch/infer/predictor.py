@@ -19,18 +19,26 @@ by blending overlapping windows at every valid anchor (stride 1), with
   per-frame blend weights, as the reference predictor does. On the card
   ``index_add_`` adds overlapping windows in an order that may change from
   run to run, so results agree to fp32 rounding, not bit for bit.
+* ``predict_mouse_split`` blends several predictors (the fold models) over
+  a split's trials: one disk read and one upload a trial for all of them,
+  the mean on the device, and each trial's copy to the host overlapped
+  with the next trial's forwards.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sensorium_tpu_torch import constants
 from sensorium_tpu_torch.data.indexes import WindowIndexer
 from sensorium_tpu_torch.data.inputs import StackInputsProcessor, get_inputs_processor
+from sensorium_tpu_torch.data.mouse_data import get_mouse_data
+from sensorium_tpu_torch.engine.model import load_model
 from sensorium_tpu_torch.ops.conv import set_matmul_policy
 from sensorium_tpu_torch.utils.device import resolve_device
 
@@ -83,22 +91,42 @@ def assemble_trial_stack(
 class Predictor:
     """Predict whole trials of one model with window blending.
 
-    ``nn_module`` is the port's model with its weights loaded;
-    ``argus_params`` is the experiment's params dict, of which the predictor
-    reads ``frame_stack``, ``inputs_processor`` and ``responses_processor``.
-    The model is moved to ``device`` and put in eval mode. Raises if
-    ``device`` is CUDA and there is no card.
+    ``Predictor(model_path)`` loads a model checkpoint (``engine/model.py``
+    ``load_model``: the port's, the JAX package's or one converted from the
+    reference by ``cli/import_torch``) onto ``device``; ``from_module``
+    takes a module and the params dict instead. Raises if ``device`` is CUDA
+    and there is no card.
     """
 
     def __init__(
         self,
+        model_path: Path | str,
+        blend_weights: str = "ones",
+        chunk_size: int = 32,
+        device: str | torch.device = "cuda",
+    ):
+        model = load_model(model_path, device=device)
+        self._setup(model.state.eval_model, model.params, blend_weights, chunk_size, model.device)
+
+    @classmethod
+    def from_module(
+        cls,
         nn_module: torch.nn.Module,
         argus_params: dict,
         blend_weights: str = "ones",
         chunk_size: int = 32,
         device: str | torch.device = "cuda",
-    ):
-        self.device = resolve_device(device)
+    ) -> "Predictor":
+        """A predictor of ``nn_module`` (weights loaded), which is moved to
+        ``device``; of ``argus_params`` it reads ``frame_stack``,
+        ``inputs_processor`` and ``responses_processor``."""
+        predictor = cls.__new__(cls)
+        predictor._setup(nn_module, argus_params, blend_weights, chunk_size, resolve_device(device))
+        return predictor
+
+    def _setup(self, nn_module, argus_params: dict, blend_weights: str, chunk_size: int,
+               device: torch.device) -> None:
+        self.device = device
         frame_stack = argus_params["frame_stack"]
         if frame_stack["position"] != "last":
             raise ValueError(
@@ -122,6 +150,20 @@ class Predictor:
             get_blend_weights(blend_weights, frame_stack["size"])
         ).to(self.device)
         self.chunk_size = chunk_size
+
+    def stage_signature(self) -> tuple:
+        """What a staged trial depends on: the input processor, the window
+        plan and the device, not the weights, the blend weights or the chunk
+        size. Predictors with equal signatures can run one ``stage_trial``."""
+        ip = self.inputs_processor
+        gen = self.indexes_generator
+        return (
+            type(ip),
+            getattr(ip, "size", None),
+            getattr(ip, "pad_fill_value", None),
+            (gen.size, gen.step, gen.position),
+            self.device,
+        )
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32)).to(self.device)
@@ -198,3 +240,87 @@ class Predictor:
     ) -> np.ndarray:
         """video (H, W, T), behavior / pupil_center (2, T) -> (N, T) float32."""
         return self.predict_trial_device(video, behavior, pupil_center, mouse_index).cpu().numpy()
+
+    def predict_trial_data(self, trial_data: dict, mouse_index: int) -> np.ndarray:
+        """Predict a trial of ``get_mouse_data``'s catalog."""
+        return self.predict_trial(*_load_trial_arrays(trial_data), mouse_index)
+
+
+def _load_trial_arrays(trial_data: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(video, behavior, pupil_center) of a catalog entry, cut to its length."""
+    length = trial_data["length"]
+    return (
+        np.load(trial_data["video_path"])[..., :length],
+        np.load(trial_data["behavior_path"])[..., :length],
+        np.load(trial_data["pupil_center_path"])[..., :length],
+    )
+
+
+class _PendingSave(NamedTuple):
+    path: Path
+    host: torch.Tensor
+    copied: torch.cuda.Event | None
+
+
+def _start_fetch(path: Path, blend: torch.Tensor) -> _PendingSave:
+    """Start the copy of ``blend`` to the host. On the card it goes into
+    pinned memory without waiting, with an event recorded behind it: a
+    blocking copy would also wait for every launch queued after it."""
+    if blend.device.type != "cuda":
+        return _PendingSave(path, blend, None)
+    host = torch.empty(blend.shape, dtype=blend.dtype, pin_memory=True)
+    host.copy_(blend, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    return _PendingSave(path, host, copied)
+
+
+def _finish_fetch(pending: _PendingSave) -> None:
+    if pending.copied is not None:
+        pending.copied.synchronize()
+    np.save(str(pending.path), pending.host.numpy())
+
+
+def predict_mouse_split(
+    mouse: str,
+    split: str,
+    predictors: list[Predictor],
+    save_dir: Path,
+    trial_shard: tuple[int, int] | None = None,
+) -> None:
+    """Blend ``predictors`` (the fold models) over one mouse's split trials
+    and save each trial's (N, T) mean as ``save_dir/<trial_id>.npy``.
+
+    ``trial_shard=(i, n)`` predicts every n-th trial from the i-th. Each
+    trial is read from disk once for all predictors; when their
+    ``stage_signature`` is equal it is also staged once and the mean is
+    taken on the device, otherwise each predicts on its own and the mean is
+    taken on the host. Trial t-1 is saved after trial t's forwards are
+    queued, so the disk and the card work at the same time.
+    """
+    if not predictors:
+        raise ValueError("predictors must be non-empty")
+    mouse_index = constants.mouse2index[mouse]
+    trials = get_mouse_data(mouse=mouse, splits=[split])["trials"]
+    if trial_shard is not None:
+        index, count = trial_shard
+        trials = trials[index::count]
+    save_dir.mkdir(parents=True, exist_ok=True)
+    lead = predictors[0]
+    shared_staging = all(p.stage_signature() == lead.stage_signature() for p in predictors[1:])
+    pending: _PendingSave | None = None
+    for trial_data in trials:
+        video, behavior, pupil_center = _load_trial_arrays(trial_data)
+        if shared_staging:
+            staged = lead.stage_trial(video, behavior, pupil_center)
+            responses = [p.run_staged(staged, mouse_index) for p in predictors]
+            blend = responses[0] if len(responses) == 1 else torch.stack(responses).mean(dim=0)
+        else:
+            blend = torch.from_numpy(np.mean(
+                [p.predict_trial(video, behavior, pupil_center, mouse_index) for p in predictors], axis=0))
+        fetch = _start_fetch(save_dir / f"{trial_data['trial_id']}.npy", blend)
+        if pending is not None:
+            _finish_fetch(pending)
+        pending = fetch
+    if pending is not None:
+        _finish_fetch(pending)

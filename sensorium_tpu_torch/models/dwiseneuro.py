@@ -89,6 +89,12 @@ def readout_group_sizes(num_neurons: int, groups: int) -> list[int]:
     return sizes
 
 
+def padded_group_size(readout_outputs: Sequence[int], groups: int, multiple: int) -> int:
+    """Per-group readout rows: the largest ``ceil(N / groups)``, padded up to ``multiple``."""
+    largest = max(math.ceil(n / groups) for n in readout_outputs)
+    return (largest + multiple - 1) // multiple * multiple
+
+
 def tile_channels(x: torch.Tensor, features: int) -> torch.Tensor:
     """Repeat the channel axis and cut it to ``features`` channels."""
     reps = math.ceil(features / x.shape[-1])
@@ -333,9 +339,7 @@ class DwiseNeuro(nn.Module):
     @property
     def padded_group_size(self) -> int:
         """Per-group readout rows, padded up to ``readout_pad_multiple``."""
-        largest = max(math.ceil(n / self.groups) for n in self.readout_outputs)
-        m = self.readout_pad_multiple
-        return (largest + m - 1) // m * m
+        return padded_group_size(self.readout_outputs, self.groups, self.readout_pad_multiple)
 
     def _position_encoding(self, x: torch.Tensor) -> torch.Tensor:
         """The (T, H, W, C) PE table for x, in x's dtype, kept on x's device."""

@@ -172,7 +172,7 @@ def test_predictor_on_the_card_matches_the_cpu(cuda):
     out = {}
     for device in ("cpu", "cuda"):
         model = get_nn_module("dwiseneuro", TINY, device=device, generator=torch.Generator().manual_seed(3))
-        out[device] = Predictor(model, ARGUS, chunk_size=8, device=device).predict_trial(video, behavior, pupil, 1)
+        out[device] = Predictor.from_module(model, ARGUS, chunk_size=8, device=device).predict_trial(video, behavior, pupil, 1)
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
 
 
@@ -667,3 +667,107 @@ def test_native_host_library_builds_on_the_card_machine(cuda, tmp_path, monkeypa
         np.testing.assert_array_equal(out, np.maximum(src[:, idx], 0.0))
     finally:
         native.reset()
+
+
+def write_unlabeled_trials(root, mouse: str, lengths) -> None:
+    """One mouse in the on-disk layout, with unlabeled live_test_main trials only."""
+    rng = np.random.default_rng(17)
+    mdir = root / mouse
+    for sub in ("data/videos", "data/behavior", "data/pupil_center", "meta/trials", "meta/neurons"):
+        (mdir / sub).mkdir(parents=True, exist_ok=True)
+    np.save(mdir / "meta/trials/tiers.npy", np.array(["live_test_main"] * len(lengths)))
+    np.save(mdir / "meta/neurons/unit_ids.npy", np.arange(1, 6, dtype=np.int64))
+    np.save(mdir / "meta/neurons/cell_motor_coordinates.npy", np.zeros((5, 3), np.float32))
+    for trial, length in enumerate(lengths):
+        np.save(mdir / f"data/videos/{trial}.npy", rng.uniform(0, 255, (12, 14, length)).astype(np.float32))
+        np.save(mdir / f"data/behavior/{trial}.npy", rng.uniform(0, 5, (2, length)).astype(np.float32))
+        np.save(mdir / f"data/pupil_center/{trial}.npy", rng.uniform(0, 50, (2, length)).astype(np.float32))
+
+
+@pytest.fixture
+def unlabeled_split(tmp_path, monkeypatch):
+    """Four trials of one new mouse (mouse index 0: TINY's 5 neurons), one shorter than a window."""
+    from sensorium_tpu_torch import constants
+    from sensorium_tpu_torch.data import mouse_data
+
+    mouse = constants.new_mice[0]
+    write_unlabeled_trials(tmp_path / "data", mouse, [40, 33, 6, 52])
+    monkeypatch.setattr(constants, "sensorium_dir", tmp_path / "data")
+    monkeypatch.setenv("SENSORIUM_FOLD_ASSIGNMENT", "trial")
+    mouse_data.get_folds_tiers.cache_clear()
+    yield mouse, tmp_path
+    mouse_data.get_folds_tiers.cache_clear()
+
+
+def fold_predictors(device, count: int = 7) -> list[Predictor]:
+    return [
+        Predictor.from_module(
+            get_nn_module("dwiseneuro", TINY, device=device, generator=torch.Generator().manual_seed(fold)),
+            ARGUS, chunk_size=8, device=device)
+        for fold in range(count)
+    ]
+
+
+@pytest.mark.cuda
+def test_predict_mouse_split_on_the_card_matches_the_cpu(cuda, unlabeled_split):
+    """The fold blend with the deferred fetch (pinned copy, event, save one trial later) against the CPU."""
+    from sensorium_tpu_torch.infer.predictor import predict_mouse_split
+
+    mouse, root = unlabeled_split
+    for device in ("cpu", "cuda"):
+        predict_mouse_split(mouse, "live_test_main", fold_predictors(device), root / device)
+    for trial, length in enumerate([40, 33, 6, 52]):
+        got, expected = np.load(root / "cuda" / f"{trial}.npy"), np.load(root / "cpu" / f"{trial}.npy")
+        assert got.shape == expected.shape == (5, length) and got.dtype == np.float32
+        np.testing.assert_allclose(got, expected, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_predict_mouse_split_on_the_card_is_the_mean_of_seven(cuda, unlabeled_split):
+    from sensorium_tpu_torch.infer.predictor import _load_trial_arrays, predict_mouse_split
+    from sensorium_tpu_torch.data.mouse_data import get_mouse_data
+
+    mouse, root = unlabeled_split
+    predictors = fold_predictors("cuda")
+    predict_mouse_split(mouse, "live_test_main", predictors, root / "blend")
+    for trial_data in get_mouse_data(mouse, ["live_test_main"])["trials"]:
+        arrays = _load_trial_arrays(trial_data)
+        each = [p.predict_trial(*arrays, mouse_index=0) for p in predictors]
+        # index_add_ on the card sums overlapping windows in an order that may vary: fp32 rounding.
+        np.testing.assert_allclose(np.load(root / "blend" / f"{trial_data['trial_id']}.npy"), np.mean(each, axis=0),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def tiny_batch(rng) -> MiceBatch:
+    weights = np.zeros((4, 2), np.float32)
+    weights[np.arange(4), [0, 1, 0, 1]] = 1.0
+    return MiceBatch(rng.uniform(0, 255, (4, 5, 4, 16, 16)).astype(np.float32),
+                     rng.gamma(1.5, 1.0, (4, 7, 4)).astype(np.float32), weights)
+
+
+@pytest.mark.cuda
+def test_background_save_on_the_card_is_bitwise_a_sync_save(cuda, tmp_path):
+    """The copy to the host happens before save() returns: the next step's in-place updates cannot reach it."""
+    from sensorium_tpu_torch.engine.checkpoint import flush_pending_saves
+    from sensorium_tpu_torch.engine.model import load_model
+
+    model = MouseModel({**ARGUS, "nn_module": ("dwiseneuro", TINY)}, device="cuda")
+    model.set_ema(0.9)
+    model.build_state(seed=0, learning_rate=1e-3)
+    batch = tiny_batch(np.random.default_rng(18))
+    model.train_step(batch)
+    model.save(tmp_path / "sync.ckpt")
+    model.save_train_state(tmp_path / "sync_state.ckpt")
+    model.save(tmp_path / "async.ckpt", background=True)
+    model.save_train_state(tmp_path / "async_state.ckpt", background=True)
+    model.train_step(batch)
+    flush_pending_saves()
+    assert (tmp_path / "async.ckpt").read_bytes() == (tmp_path / "sync.ckpt").read_bytes()
+    assert (tmp_path / "async_state.ckpt").read_bytes() == (tmp_path / "sync_state.ckpt").read_bytes()
+    restored = load_model(tmp_path / "async.ckpt", device="cuda")
+    resumed = MouseModel({**ARGUS, "nn_module": ("dwiseneuro", TINY)}, device="cuda")
+    resumed.set_ema(0.9)
+    resumed.build_state(seed=1, learning_rate=1e-3)
+    resumed.load_train_state(tmp_path / "async_state.ckpt")
+    assert next(restored.state.model.parameters()).device.type == "cuda"
+    assert float(resumed.train_step(batch)) > 0

@@ -16,7 +16,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from sensorium_tpu_torch.engine.model import MouseModel
+from sensorium_tpu_torch.engine.model import MouseModel, load_model
 from sensorium_tpu_torch.infer.predictor import Predictor
 from sensorium_tpu_torch.models.registry import get_nn_module
 from tests.test_engine import tiny_params
@@ -31,7 +31,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sensorium_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "sensorium_tpu"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "sensorium_tpu_torch.ops.dw_kernels" in result["modules"]
     assert "sensorium_tpu_torch.engine.steps" in result["modules"]
     assert "sensorium_tpu_torch.engine.model" in result["modules"]
-    for name in ("tools.dwbench", "data.loader", "data.native", "engine.callbacks"):
+    for name in ("tools.dwbench", "data.loader", "data.native", "engine.callbacks", "engine.checkpoint",
+                 "utils.msgpack", "infer.submission", "cli.predict", "cli.import_torch"):
         assert f"sensorium_tpu_torch.{name}" in result["modules"]
 
 
@@ -58,7 +59,7 @@ def test_training_engine_imports_no_jax():
         "import json, sys\n"
         "import sensorium_tpu_torch.engine.steps, sensorium_tpu_torch.engine.model\n"
         "print(json.dumps(sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sensorium_tpu'))))"
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'sensorium_tpu'))))"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -94,9 +95,13 @@ def test_entry_points_refuse_cuda_without_a_card():
         get_nn_module(name, params)
     model = get_nn_module(name, params, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Predictor(model, tiny_params())
+        Predictor.from_module(model, tiny_params())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MouseModel(tiny_params())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor("model-000-0.000000.ckpt")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_model("model-000-0.000000.ckpt")
 
 
 @pytest.mark.parametrize("alone", [False, True])

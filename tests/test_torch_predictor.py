@@ -50,7 +50,7 @@ def port_predictor(weights, blend_weights: str, chunk_size: int = 8) -> Predicto
     argus = tiny_params()
     nn_module = get_nn_module(*argus["nn_module"], device="cpu")
     nn_module.load_state_dict(from_jax_variables(params, stats), strict=True)
-    return Predictor(nn_module, argus, blend_weights=blend_weights, chunk_size=chunk_size, device="cpu")
+    return Predictor.from_module(nn_module, argus, blend_weights=blend_weights, chunk_size=chunk_size, device="cpu")
 
 
 def trial(length: int, seed: int, frame=(12, 14)):
@@ -127,8 +127,8 @@ def test_predictor_refuses_what_the_jax_one_refuses(weights):
     nn_module = get_nn_module(*tiny_params()["nn_module"], device="cpu")
     bad_position = {**tiny_params(), "frame_stack": {"size": 4, "step": 2, "position": "middle"}}
     with pytest.raises(ValueError, match="last"):
-        Predictor(nn_module, bad_position, device="cpu")
+        Predictor.from_module(nn_module, bad_position, device="cpu")
     with pytest.raises(ValueError, match="identity"):
-        Predictor(nn_module, {**tiny_params(), "responses_processor": ("log", {})}, device="cpu")
+        Predictor.from_module(nn_module, {**tiny_params(), "responses_processor": ("log", {})}, device="cpu")
     with pytest.raises(ValueError, match="chunk_size"):
-        Predictor(nn_module, tiny_params(), chunk_size=0, device="cpu")
+        Predictor.from_module(nn_module, tiny_params(), chunk_size=0, device="cpu")
