@@ -122,7 +122,24 @@ Phases, each of which passes or makes the script exit non-zero:
    card, the deferred fetch); every saved blend must match one
    ``Predictor``'s prediction of its trial within 1e-6 of its largest
    value. It prints trials/s and windows/s. The submission file is not
-   written: pandas is not a dependency of the card's machine.
+   written: pandas is not a dependency of the card's machine;
+15. train CLI: ``sensorium_tpu_torch.cli.train`` on phase 11's dataset
+   (``SENSORIUM_DATA_DIR`` and ``SENSORIUM_CONFIGS_DIR`` pointed at a
+   temporary directory that holds the port's configs): in-process
+   ``main(["-e", "smoke_001", "-f", "0"])`` (the flagship at full width, 64
+   clips an epoch, a warmup and a train epoch) must log both epochs with
+   finite losses and ``val_corr``, write ``config.json``, the logs, one
+   ``model-001-*.ckpt`` and ``train_state.ckpt``, and launch the kernels of
+   its steps and val forwards as phase 11 counts them; ``--resume`` on the
+   finished fold must read the state of epoch 1 and take no step; the
+   distillation recipe (``distillation_001``, student expansion 6 with 3
+   blocks rematerialized) at the same size must train from that fold as its
+   teacher, whose eval forward adds 9 + 9 launches a step; then the CLI as
+   a subprocess (smoke_001 at 640 clips an epoch) gets a SIGTERM once its
+   warmup epoch is logged and must exit 75 with a train state, and its
+   ``--resume`` must exit 0 with every epoch logged once. It prints each
+   run's wall seconds, steps/s, seconds before the first step and
+   checkpoint seconds.
 
 After the counted serving run, one more request runs under
 ``torch.profiler`` and the device time is summed by kernel. The script then
@@ -131,10 +148,11 @@ prints the ``{"kernels": [...]}`` line, the nvidia-smi line again, and last
 (``chip_smoke.json``), the profiler traces (``chip_smoke_trace.json``,
 ``chip_smoke_train_trace.json``) and the fit's logs go to ``--out``, by
 default ``build/chip_smoke/`` in the checkout; the fit's dataset is written
-there too and removed after phase 14. Checkpoints, train states and the
-prediction tree of phases 12-14 go to a temporary directory outside
-``--out``, removed at the end. Each phase 12-14 counts the kernel launches
-of its own run, from 0, and checks them against its forwards and steps.
+there too and removed after phase 15. Checkpoints, train states, the
+prediction tree and the experiments of phases 12-15 go to a temporary
+directory outside ``--out``, removed at the end. Each phase 12-15 counts the
+kernel launches of its own runs, from 0, and checks them against their
+forwards and steps.
 """
 
 from __future__ import annotations
@@ -238,6 +256,13 @@ IMPORT_ATOL_SCALE = 2e-4  # of max |expected|
 # Phase 14: one checkpoint for all 7 folds, so the blend equals one Predictor.
 SUBMISSION_EXPERIMENT = "smoke"
 BLEND_REL_TOL = 1e-6
+# Phase 15: the train CLI on phase 11's dataset, from the port's configs.
+PORT_CONFIGS = REPO / "sensorium_tpu_torch" / "configs"
+CLI_EXPERIMENT = "smoke_001"
+CLI_DISTILL = "distill_smoke"  # distillation_001 at smoke_001's size, smoke_001's fold as the teacher
+CLI_SIGTERM = "sigterm_smoke"  # smoke_001 with CLI_SIGTERM_EPOCH_SIZE clips an epoch
+CLI_SIGTERM_EPOCH_SIZE = 640  # 20 steps an epoch at batch 32: the signal lands inside the fit
+CLI_CHILD_TIMEOUT = 300  # seconds
 
 
 def fail(message: str) -> None:
@@ -1137,7 +1162,7 @@ class TimedLoader:
 
 def fit(record: dict, out_dir: Path) -> Path:
     """Phase 11: the flagship fit loop fed from disk; returns the dataset's
-    root, which phase 14 reads too."""
+    root, which phases 14 and 15 read too."""
     import csv
     import os
 
@@ -1576,6 +1601,313 @@ def submission_flow(record: dict, fit_root: Path, work: Path) -> dict:
     return launches
 
 
+def write_cli_configs(configs_dir: Path) -> None:
+    """The port's configs, and the two phase 15 derives from them: the
+    distillation recipe at smoke size with smoke_001's fold as its teacher,
+    and smoke_001 with CLI_SIGTERM_EPOCH_SIZE clips an epoch."""
+    configs_dir.mkdir(parents=True)
+    for path in sorted(PORT_CONFIGS.glob("*.py")):
+        shutil.copy(path, configs_dir / path.name)
+    derived = {
+        CLI_DISTILL: ("distillation_001", {"train_epoch_size": 64, "num_epochs": [1, 1],
+                                           "distill": {"experiment": CLI_EXPERIMENT, "ratio": 0.36}}),
+        CLI_SIGTERM: (CLI_EXPERIMENT, {"train_epoch_size": CLI_SIGTERM_EPOCH_SIZE}),
+    }
+    for name, (base, changes) in derived.items():
+        (configs_dir / f"{name}.py").write_text(
+            "from importlib.machinery import SourceFileLoader\n"
+            "from pathlib import Path\n\n"
+            f"_path = str(Path(__file__).resolve().parent / {base + '.py'!r})\n"
+            f"config = dict(SourceFileLoader({base!r}, _path).load_module().config)\n"
+            f"config.update({changes!r})\n")
+
+
+class CliClock:
+    """Times an in-process ``cli.train`` run: the seconds before its first
+    train step and those spent saving and loading train states and models,
+    by wrapping the ``MouseModel`` methods while it is entered."""
+
+    TIMED = ("save", "save_train_state", "load_train_state")
+
+    def __init__(self):
+        from sensorium_tpu_torch.engine.model import MouseModel
+
+        self.cls = MouseModel
+        self.start = 0.0
+        self.first_step: float | None = None
+        self.steps = 0
+        self.checkpoint_seconds = 0.0
+        self.resumed_epochs: list[int] = []  # the epoch each load_train_state found
+        self._originals = {}
+
+    def __enter__(self):
+        from sensorium_tpu_torch.utils.profiling import sync
+
+        def timed(original):
+            def wrapper(model, *args, **kwargs):
+                sync()
+                start = time.perf_counter()
+                result = original(model, *args, **kwargs)
+                sync()
+                self.checkpoint_seconds += time.perf_counter() - start
+                if isinstance(result, dict):  # load_train_state's extra
+                    self.resumed_epochs.append(int(result["epoch"]))
+                return result
+
+            return wrapper
+
+        def train_step(original):
+            def wrapper(model, batch):
+                if self.first_step is None:
+                    self.first_step = time.perf_counter()
+                self.steps += 1
+                return original(model, batch)
+
+            return wrapper
+
+        self._originals = {name: getattr(self.cls, name) for name in (*self.TIMED, "train_step")}
+        for name in self.TIMED:
+            setattr(self.cls, name, timed(self._originals[name]))
+        self.cls.train_step = train_step(self._originals["train_step"])
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc_info):
+        for name, original in self._originals.items():
+            setattr(self.cls, name, original)
+
+
+def read_cli_logs(fold_dir: Path) -> list[dict]:
+    path = fold_dir / "log.jsonl"
+    return [json.loads(line) for line in path.read_text().splitlines()] if path.exists() else []
+
+
+def cli_log_times(fold_dir: Path) -> dict:
+    """The wall-clock times (as ``time.time()``) of the lines of ``log.txt``
+    that end an epoch, and of the preemption save's line, if there is one."""
+    from datetime import datetime
+
+    times: dict = {"epochs": []}
+    for line in (fold_dir / "log.txt").read_text().splitlines():
+        if not re.match(r"\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3} ", line):
+            continue
+        stamp = datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+        if re.search(r" epoch \d+: ", line):
+            times["epochs"].append(stamp)
+        elif "Preemption signal" in line:
+            times["preempted"] = stamp
+    return times
+
+
+def expected_cli_launches(steps: int, val_forwards: int, student: dict, teacher: dict | None) -> dict:
+    """The kernel launches of ``steps`` train steps of the ``student``
+    nn_module (with its ``teacher``'s eval forward, if any) and of
+    ``val_forwards`` eval forwards."""
+    blocks = len(student["core_features"])
+    remat = student["remat_blocks"]
+    remat = remat if isinstance(remat, int) else len(remat)
+    taught = len(teacher["core_features"]) if teacher is not None else 0
+    return {"dw_spatial_fwd": (blocks + remat + taught) * steps + blocks * val_forwards,
+            "dw_temporal_fwd": (2 * blocks + remat + taught) * steps + blocks * val_forwards,
+            "dw_spatial_dx": blocks * steps, "dw_spatial_dw": blocks * steps, "dw_temporal_dw": blocks * steps,
+            "fused_bn_silu_dw_spatial": 0}
+
+
+def cli_fold_shape(config: dict) -> tuple[int, int]:
+    """(train steps, val batches) an epoch of fold 0 under ``config``."""
+    from sensorium_tpu_torch.data import mouse_data
+    from sensorium_tpu_torch.data.datasets import ValMiceDataset
+    from sensorium_tpu_torch.data.indexes import WindowIndexer
+    from sensorium_tpu_torch.data.inputs import get_inputs_processor
+    from sensorium_tpu_torch.data.responses import get_responses_processor
+
+    params = config["argus_params"]
+    steps = config["train_epoch_size"] // constants.num_mice * constants.num_mice // config["batch_size"]
+    val = ValMiceDataset([mouse_data.get_mouse_data(m, ["fold_0"]) for m in constants.mice],
+                         WindowIndexer(**params["frame_stack"]), get_inputs_processor(*params["inputs_processor"]),
+                         get_responses_processor(*params["responses_processor"]))
+    return steps, -(-len(val) // (config["batch_size"] // params.get("iter_size", 1)))
+
+
+def run_cli_child(command: list[str], env: dict, out_path: Path, until=None) -> tuple[int, float, float, float]:
+    """``command`` as a subprocess, its output to ``out_path``. With ``until``
+    (a function), SIGTERM is sent once ``until()`` is true; the phase fails
+    if the child ends first. Returns the exit code, its start (``time.time()``),
+    its wall seconds and when the signal was sent (0 without ``until``)."""
+    import signal
+
+    with open(out_path, "w") as out:
+        started_at, started = time.time(), time.perf_counter()
+        proc = subprocess.Popen(command, env=env, cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+    signalled = 0.0
+    try:
+        if until is not None:
+            while proc.poll() is None and not until():
+                if time.perf_counter() - started > CLI_CHILD_TIMEOUT:
+                    fail(f"train cli: the signal's condition did not come within {CLI_CHILD_TIMEOUT} s")
+                time.sleep(0.05)
+            if proc.poll() is not None:
+                fail(f"train cli: {command} ended (exit code {proc.returncode}) before the signal:\n"
+                     f"{out_path.read_text()[-3000:]}")
+            signalled = time.time()
+            proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=CLI_CHILD_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, started_at, time.perf_counter() - started, signalled
+
+
+def train_cli(record: dict, fit_root: Path, work: Path, device: str = "cuda") -> dict:
+    """Phase 15: ``cli.train`` on phase 11's dataset: the smoke_001 fold, its
+    resume, a distillation from it, and a SIGTERM in a subprocess, then its
+    resume. Returns the smoke fold's launches; the distillation's go to
+    ``record["train_cli"]["distill_launches"]``."""
+    import gc
+    import os
+    from importlib.machinery import SourceFileLoader
+
+    import numpy as np
+    import torch
+
+    from sensorium_tpu_torch.cli import train
+    from sensorium_tpu_torch.data import mouse_data
+    from sensorium_tpu_torch.ops import dw_kernels
+    from sensorium_tpu_torch.utils.misc import get_best_model_path
+    from sensorium_tpu_torch.utils.profiling import sync
+
+    data_dir, configs_dir = work / "train_cli", work / "train_cli_configs"
+    data_dir.mkdir()
+    (data_dir / "sensorium_all_2023").symlink_to(fit_root.resolve(), target_is_directory=True)
+    write_cli_configs(configs_dir)
+    saved = (constants.data_dir, constants.sensorium_dir, constants.experiments_dir, constants.predictions_dir,
+             constants.configs_dir)
+    point_data_dir(data_dir)
+    constants.configs_dir = configs_dir
+    mouse_data.get_folds_tiers.cache_clear()
+    experiments = data_dir / "experiments"
+    configs = {name: SourceFileLoader(name, str(configs_dir / f"{name}.py")).load_module().config
+               for name in (CLI_EXPERIMENT, CLI_DISTILL, CLI_SIGTERM)}
+    argv = ["-f", "0", "--device", device]
+    runs: dict = {}
+
+    def finite(records: list[dict]) -> bool:
+        return all(np.isfinite(r[k]) for r in records for k in ("train_loss", "val_loss", "val_corr"))
+
+    def in_process(label: str, experiment: str, *flags: str) -> tuple[dict, CliClock]:
+        fold = experiments / experiment / "fold_0"
+        before = len(read_cli_logs(fold))
+        sync()
+        reset_launches()
+        with CliClock() as clock:
+            train.main(["-e", experiment, *argv, *flags])
+        sync()
+        wall = time.perf_counter() - clock.start
+        new = read_cli_logs(fold)[before:]
+        epochs_seconds = sum(r["epoch_time"] for r in new)
+        run = {"wall_seconds": wall, "steps": clock.steps, "checkpoint_seconds": clock.checkpoint_seconds,
+               "seconds_before_first_step": None if clock.first_step is None else clock.first_step - clock.start,
+               "steps_per_second": clock.steps / epochs_seconds if epochs_seconds else 0.0,
+               "epochs": new, "launches": dict(dw_kernels.LAUNCHES)}
+        runs[label] = run
+        gc.collect()
+        torch.cuda.empty_cache()
+        steps = (f"{clock.steps} steps at {run['steps_per_second']:.3f} steps/s over its epochs' time (validation "
+                 f"included), {run['seconds_before_first_step']:.2f} s before the first step" if clock.steps
+                 else "no step")
+        print(f"train cli: {label}: {wall:.2f} s wall, {steps}, {clock.checkpoint_seconds:.2f} s saving and "
+              f"loading checkpoints; launches {run['launches']}", flush=True)
+        return run, clock
+
+    # 1. The smoke fold.
+    smoke_steps, val_batches = cli_fold_shape(configs[CLI_EXPERIMENT])
+    nn_params = configs[CLI_EXPERIMENT]["argus_params"]["nn_module"][1]
+    fold = experiments / CLI_EXPERIMENT / "fold_0"
+    smoke, _ = in_process("smoke_001 fold 0", CLI_EXPERIMENT)
+    files = sorted(p.name for p in fold.iterdir())
+    if [(r["stage"], r["epoch"]) for r in smoke["epochs"]] != [("warmup", 0), ("train", 1)] or not finite(
+            smoke["epochs"]):
+        fail(f"train cli: smoke_001 logged {smoke['epochs']}")
+    if (len([f for f in files if re.fullmatch(r"model-001-.*\.ckpt", f)]) != 1
+            or not {"log.txt", "log.csv", "log.jsonl", "train_state.ckpt"} <= set(files)
+            or not (fold.parent / "config.json").exists()):
+        fail(f"train cli: the smoke_001 fold holds {files}")
+    expected = expected_cli_launches(2 * smoke_steps, 2 * val_batches, nn_params, None)
+    if smoke["launches"] != expected:
+        fail(f"train cli: smoke_001 launched {smoke['launches']}, expected {expected} "
+             f"({2 * smoke_steps} steps, {2 * val_batches} val forwards)")
+
+    # 2. --resume on the finished fold.
+    # It prints "Resumed from epoch 2" and that both stages are complete; here: the state read, no step taken.
+    resumed, clock = in_process("smoke_001 --resume", CLI_EXPERIMENT, "--resume")
+    if clock.resumed_epochs != [1] or resumed["steps"] or len(read_cli_logs(fold)) != 2:
+        fail("train cli: --resume on the finished fold did not skip both stages")
+
+    # 3. Distillation, the smoke fold as the teacher.
+    # The teacher's forward shows in the launches.
+    distill, _ = in_process("distillation from smoke_001", CLI_DISTILL)
+    if ([(r["stage"], r["epoch"]) for r in distill["epochs"]] != [("warmup", 0), ("train", 1)]
+            or not finite(distill["epochs"]) or get_best_model_path(experiments / CLI_DISTILL / "fold_0") is None):
+        fail(f"train cli: the distillation logged {distill['epochs']}")
+    expected = expected_cli_launches(2 * smoke_steps, 2 * val_batches,
+                                     configs[CLI_DISTILL]["argus_params"]["nn_module"][1], nn_params)
+    if distill["launches"] != expected:
+        fail(f"train cli: the distillation launched {distill['launches']}, expected {expected}")
+
+    # 4. A real SIGTERM to the CLI as a user runs it, once the warmup epoch is logged; then --resume.
+    env = {**os.environ, "SENSORIUM_DATA_DIR": str(data_dir), "SENSORIUM_CONFIGS_DIR": str(configs_dir),
+           "SENSORIUM_FOLD_ASSIGNMENT": "trial", "PYTHONPATH": str(REPO)}
+    command = [sys.executable, "-m", "sensorium_tpu_torch.cli.train", "-e", CLI_SIGTERM, *argv]
+    sigterm_fold = experiments / CLI_SIGTERM / "fold_0"
+    sigterm_steps = cli_fold_shape(configs[CLI_SIGTERM])[0]
+    out_path = work / "train_cli_child.out"
+    code, started_at, wall, signalled = run_cli_child(
+        command, env, out_path,
+        until=lambda: (sigterm_fold / "log.jsonl").exists() and '"stage": "warmup"' in (
+            sigterm_fold / "log.jsonl").read_text())
+    times, interrupted = cli_log_times(sigterm_fold), read_cli_logs(sigterm_fold)
+    if code != 75 or not (sigterm_fold / "train_state.ckpt").exists() or "preempted" not in times:
+        fail(f"train cli: SIGTERM gave exit code {code}, expected 75 and a train state:\n"
+             f"{out_path.read_text()[-3000:]}")
+    run = runs["SIGTERM"] = {
+        "wall_seconds": wall, "returncode": code, "steps_per_second": sigterm_steps / interrupted[0]["epoch_time"],
+        "seconds_before_first_step": times["epochs"][0] - interrupted[0]["epoch_time"] - started_at,
+        "signal_to_saved_seconds": times["preempted"] - signalled, "epochs": interrupted}
+    print(f"train cli: SIGTERM: {wall:.2f} s wall, exit code {code}; the warmup epoch's {sigterm_steps} steps at "
+          f"{run['steps_per_second']:.3f} steps/s (validation included), {run['seconds_before_first_step']:.2f} s "
+          f"before the first step (imports, module build, kernel library load, dataset index), "
+          f"{run['signal_to_saved_seconds']:.2f} s from the signal to the train state saved", flush=True)
+
+    code, started_at, wall, _ = run_cli_child([*command, "--resume"], env, out_path)
+    output, times, records = out_path.read_text(), cli_log_times(sigterm_fold), read_cli_logs(sigterm_fold)
+    resumed_at = interrupted[-1]["epoch"] + 1
+    epochs = [r["epoch"] for r in records]
+    if (code != 0 or f"Resumed from epoch {resumed_at}" not in output
+            or epochs != list(range(len(configs[CLI_SIGTERM]["num_epochs"])))):
+        fail(f"train cli: the resume after SIGTERM gave exit code {code}, epochs {epochs}:\n{output[-3000:]}")
+    new = records[len(interrupted):]
+    run = runs["SIGTERM --resume"] = {
+        "wall_seconds": wall, "returncode": code, "epochs": new,
+        "steps_per_second": len(new) * sigterm_steps / sum(r["epoch_time"] for r in new),
+        "seconds_before_first_step": times["epochs"][len(interrupted)] - new[0]["epoch_time"] - started_at,
+        "after_last_epoch_seconds": started_at + wall - times["epochs"][-1]}
+    print(f"train cli: SIGTERM --resume: {wall:.2f} s wall, exit code 0, resumed from epoch {resumed_at}, epochs "
+          f"logged {epochs}; {len(new) * sigterm_steps} steps at {run['steps_per_second']:.3f} steps/s "
+          f"(validation included), {run['seconds_before_first_step']:.2f} s before the first step (the train "
+          f"state's load included), {run['after_last_epoch_seconds']:.2f} s after the last epoch's log line "
+          f"(its model and train-state saves, and the exit)", flush=True)
+    shutil.rmtree(experiments / CLI_SIGTERM)
+
+    record["train_cli"] = {"runs": runs, "distill_launches": distill["launches"],
+                           "steps_per_epoch": {CLI_EXPERIMENT: smoke_steps, CLI_SIGTERM: sigterm_steps},
+                           "val_batches_per_epoch": val_batches}
+    (constants.data_dir, constants.sensorium_dir, constants.experiments_dir, constants.predictions_dir,
+     constants.configs_dir) = saved
+    mouse_data.get_folds_tiers.cache_clear()
+    return smoke["launches"]
+
+
 def _summed(rows: list[dict], name: str) -> dict:
     """Times and bound of ``name`` summed over the flagship blocks' calls (bf16 rows)."""
     flagship = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16" and r["blocks"]]
@@ -1603,7 +1935,7 @@ def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused
     """One entry per kernel: sums over the calls of one flagship training step
     (batch 32 x 16 frames, the shapes of a 32-window chunk forward), bf16.
     ``launches`` counts the timed train steps, ``launches_serve`` the counted
-    serving run, ``launches_<path>`` the runs of phases 12-14; the fused
+    serving run, ``launches_<path>`` the runs of phases 12-15; the fused
     kernel's launches are the dwbench run's."""
     replaces = {
         "dw_spatial_fwd": ("dw_conv.cu", "sensorium_tpu/ops/pallas_dw.py:115"),
@@ -1703,11 +2035,13 @@ def main() -> int:
         path_launches = {}
         for name, key, phase in (("import", "import_proof", lambda: import_proof(record, work)),
                                  ("resume", "checkpoints", lambda: checkpoints(record, work)),
-                                 ("submission", "submission_flow", lambda: submission_flow(record, fit_root, work))):
+                                 ("submission", "submission_flow", lambda: submission_flow(record, fit_root, work)),
+                                 ("train_cli", "train_cli", lambda: train_cli(record, fit_root, work))):
             start = time.perf_counter()
             path_launches[name] = phase()
             record[key]["phase_seconds"] = time.perf_counter() - start
             print(f"{key}: phase took {record[key]['phase_seconds']:.1f} s", flush=True)
+        path_launches["train_cli_distill"] = record["train_cli"]["distill_launches"]
     shutil.rmtree(fit_root)  # made anew from the seed by every run
 
     summary = kernel_summary(rows + backward_rows, train_launches, serve_launches, fused_rows, fused_launches,

@@ -8,11 +8,14 @@ The filesystem roots come from environment variables when the module is
 imported:
 
 * ``SENSORIUM_WORK_DIR``: base working directory (default ``./``);
-* ``SENSORIUM_DATA_DIR``: dataset root (default ``<work>/data``).
+* ``SENSORIUM_DATA_DIR``: dataset root (default ``<work>/data``);
+* ``SENSORIUM_CONFIGS_DIR``: the experiment configs that ``cli.train -e``
+  loads (default: the port's own ``sensorium_tpu_torch/configs``, whose
+  files import only the port).
 
 The data, inference and CLI modules read ``sensorium_dir``,
-``experiments_dir`` and ``predictions_dir`` when they are called, so a
-caller may point them elsewhere by assigning the attributes.
+``experiments_dir``, ``predictions_dir`` and ``configs_dir`` when they are
+called, so a caller may point them elsewhere by assigning the attributes.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ data_dir: Path = _env_path("SENSORIUM_DATA_DIR", work_dir / "data")
 sensorium_dir: Path = data_dir / "sensorium_all_2023"
 experiments_dir: Path = data_dir / "experiments"
 predictions_dir: Path = data_dir / "predictions"
+configs_dir: Path = _env_path("SENSORIUM_CONFIGS_DIR", Path(__file__).resolve().parent / "configs")
 
 # Five mice recorded for the 2023 competition ("new") and five carried over
 # from the 2022 edition ("old").  Names are the official dataset keys.
@@ -53,6 +57,12 @@ old_mice = [
 old_num_neurons = [7440, 7928, 8285, 7671, 7495]
 
 dataset2mice = {"new": new_mice, "old": old_mice}
+mouse2dataset = {m: d for d, mc in dataset2mice.items() for m in mc}
+# Where cli/download_data.py fetches each mouse's zip.
+dataset2url_format = {
+    "new": "https://gin.g-node.org/pollytur/sensorium_2023_dataset/raw/master/{file_name}",
+    "old": "https://gin.g-node.org/pollytur/Sensorium2023Data/raw/master/{file_name}",
+}
 
 mice = new_mice + old_mice
 num_neurons = new_num_neurons + old_num_neurons

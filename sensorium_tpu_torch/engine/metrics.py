@@ -112,3 +112,15 @@ class CorrelationMetric:
         if mice_corr:
             metrics[f"{prefix}{self.name}"] = float(np.mean(list(mice_corr.values())))
         return metrics
+
+
+_METRICS = {
+    "corr": CorrelationMetric,
+}
+
+
+def get_metric(name: str, **kwargs):
+    """A metric of the registry by name (``"corr"``), built with ``kwargs``."""
+    if name not in _METRICS:
+        raise KeyError(f"Unknown metric '{name}'")
+    return _METRICS[name](**kwargs)

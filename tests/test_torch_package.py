@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "sensorium_tpu_torch.engine.steps" in result["modules"]
     assert "sensorium_tpu_torch.engine.model" in result["modules"]
     for name in ("tools.dwbench", "data.loader", "data.native", "engine.callbacks", "engine.checkpoint",
-                 "utils.msgpack", "infer.submission", "cli.predict", "cli.import_torch"):
+                 "utils.msgpack", "infer.submission", "cli.predict", "cli.import_torch", "cli.train",
+                 "cli.download_data", "utils.profiling"):
         assert f"sensorium_tpu_torch.{name}" in result["modules"]
 
 
