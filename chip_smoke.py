@@ -139,7 +139,32 @@ Phases, each of which passes or makes the script exit non-zero:
    warmup epoch is logged and must exit 75 with a train state, and its
    ``--resume`` must exit 0 with every epoch logged once. It prints each
    run's wall seconds, steps/s, seconds before the first step and
-   checkpoint seconds.
+   checkpoint seconds;
+16. data parallelism (``sensorium_tpu_torch/parallel``). 16a, two ranks on
+   this one card through the library: a child takes one unsharded flagship
+   step at batch 32 in fp32 and in bf16 (SGD, drop rates on) and saves its
+   loss, every gradient, the BN running statistics and the weights after
+   it; then two processes
+   on the card in a gloo group (NCCL refuses two ranks on one device) first
+   check that gloo takes CUDA tensors for ``all_reduce`` (sum, max, min) and
+   ``broadcast``, then take the same step at 16 rows each through
+   ``MouseModel(mesh=...)``, in fp32 (every block rematerialized) and in
+   bf16 (the flagship). Rank 0 holds each to the saved step (the bounds
+   ``MESH_*`` below: fp32 at ``tests/test_parallel.py``'s tolerances, bf16
+   within twice each tensor's own bf16 error); the ranks' weights must be
+   the same, each rank's launches those of a step, and each prints its peak
+   memory.
+   16b, NCCL through the CLI at world size 1: ``python -m
+   sensorium_tpu_torch.cli.train -e smoke_001 -f 0 --multihost
+   127.0.0.1:PORT,1,0`` on phase 11's dataset must log phase 15's fold
+   within ``MESH_LOG_RTOL`` / ``MESH_CORR_ATOL`` with phase 15's launches;
+   then the SIGTERM run of phase 15 with ``--multihost``: exit 75, then
+   ``--resume``, exit 0; its warmup epoch's steps/s beside phase 15's is the
+   cost of the mesh path on one card. 16c, only with two cards or more:
+   ``cli.train`` with the default ``--mesh data`` over every card, its logs
+   held to 16b's tolerances, and ``cli.predict -s folds --mesh`` on that
+   fold against one card within the serving tolerance; with one card it
+   prints that 16c did not run.
 
 After the counted serving run, one more request runs under
 ``torch.profiler`` and the device time is summed by kernel. The script then
@@ -263,6 +288,33 @@ CLI_DISTILL = "distill_smoke"  # distillation_001 at smoke_001's size, smoke_001
 CLI_SIGTERM = "sigterm_smoke"  # smoke_001 with CLI_SIGTERM_EPOCH_SIZE clips an epoch
 CLI_SIGTERM_EPOCH_SIZE = 640  # 20 steps an epoch at batch 32: the signal lands inside the fit
 CLI_CHILD_TIMEOUT = 300  # seconds
+# Phase 16: data parallelism. 16a holds two ranks of 16 rows to one step of
+# 32, in fp32 at tests/test_parallel.py's tolerances (the loss 1e-5
+# relative; weights rtol 1e-4 / atol 1e-5, dw kernels atol 5e-4; BN
+# statistics rtol 1e-4 / atol 1e-5) and a gradient within phase 8's
+# TRAIN_GRAD_REL_TOL of its tensor's largest value, floor TRAIN_GRAD_FLOOR
+# of the model's largest; and in bf16, the flagship's dtype, where one
+# step's gradients are only ~10% of their largest value from fp32's (16a
+# prints it), each tensor within MESH_BF16_FACTOR times its own bf16 error
+# (max |bf16 step - fp32 step| of the one-card reference) on top of the
+# fp32 bounds, and the loss within MESH_BF16_LOSS_RTOL.
+MESH_WORLD = 2
+MESH_LR = get_lr(3e-4, TRAIN_BATCH)
+MESH_LOSS_RTOL, MESH_BF16_LOSS_RTOL = 1e-5, 1e-4
+MESH_PARAM_RTOL, MESH_PARAM_ATOL, MESH_DW_ATOL = 1e-4, 1e-5, 5e-4
+MESH_STATS_RTOL, MESH_STATS_ATOL = 1e-4, 1e-5
+MESH_BF16_FACTOR = 2.0
+MESH_LOG_RTOL, MESH_CORR_ATOL = 1e-3, 1e-3  # 16b and 16c logs against phase 15's fold
+MESH_PREDICT = "mesh_predict"  # 16c: 7 fold directories that link the mesh-trained fold's checkpoint
+# Runs ``python -m MODULE ARGS`` and writes the kernel launches to PATH when the process exits.
+COUNTED_MODULE = (
+    "import atexit, json, runpy, sys\n"
+    "from sensorium_tpu_torch.ops import dw_kernels\n"
+    "path, module = sys.argv[1], sys.argv[2]\n"
+    "atexit.register(lambda: open(path, 'w').write(json.dumps(dict(dw_kernels.LAUNCHES))))\n"
+    "sys.argv = [module, *sys.argv[3:]]\n"
+    "runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+)
 
 
 def fail(message: str) -> None:
@@ -1657,11 +1709,11 @@ class CliClock:
             return wrapper
 
         def train_step(original):
-            def wrapper(model, batch):
+            def wrapper(model, batch, **kwargs):
                 if self.first_step is None:
                     self.first_step = time.perf_counter()
                 self.steps += 1
-                return original(model, batch)
+                return original(model, batch, **kwargs)
 
             return wrapper
 
@@ -1790,6 +1842,8 @@ def train_cli(record: dict, fit_root: Path, work: Path, device: str = "cuda") ->
     configs = {name: SourceFileLoader(name, str(configs_dir / f"{name}.py")).load_module().config
                for name in (CLI_EXPERIMENT, CLI_DISTILL, CLI_SIGTERM)}
     argv = ["-f", "0", "--device", device]
+    if torch.cuda.device_count() > 1:
+        argv.append("--no-mesh")  # this phase is the one-card CLI; phase 16c takes every card
     runs: dict = {}
 
     def finite(records: list[dict]) -> bool:
@@ -1908,6 +1962,425 @@ def train_cli(record: dict, fit_root: Path, work: Path, device: str = "cuda") ->
     return smoke["launches"]
 
 
+def mesh_params(dtype: str) -> dict:
+    """The flagship's training config with SGD (the update is linear in the
+    gradient) in ``dtype``; fp32 rematerializes every block, which changes
+    no number (the recompute is exact) and halves the memory."""
+    nn_name, nn_params = FLAGSHIP_NN_MODULE
+    if dtype == "float32":
+        nn_params = {**nn_params, "dtype": "float32", "remat_blocks": tuple(range(len(nn_params["core_features"])))}
+    return {**FLAGSHIP_TRAIN_ARGUS, "nn_module": (nn_name, nn_params), "optimizer": ("SGD", {"lr": MESH_LR})}
+
+
+MESH_DTYPES = ("float32", "bfloat16")
+
+
+def mesh_reference(work: Path) -> None:
+    """Phase 16a, in a child process: one unsharded flagship step at batch 32
+    in each of MESH_DTYPES, saved for the ranks to compare with."""
+    import gc
+
+    import torch
+
+    from sensorium_tpu_torch.engine.model import MouseModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    saved = {}
+    for dtype in MESH_DTYPES:
+        torch.cuda.reset_peak_memory_stats()
+        model = MouseModel(mesh_params(dtype), device="cuda")
+        model.build_state(seed=SEED, learning_rate=MESH_LR)
+        loss = float(model.train_step(synthetic_batch(TRAIN_BATCH)))
+        module = model.state.model
+        saved[dtype] = {"loss": loss, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "grads": {name: p.grad.detach().float().cpu() for name, p in module.named_parameters()},
+                        "state": {name: t.detach().float().cpu() for name, t in module.state_dict().items()}}
+        del model, module
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(saved, work / "reference.pt")
+
+
+def check_gloo_collectives(mesh) -> dict:
+    """Whether gloo reduces and broadcasts CUDA tensors as the port asks it to."""
+    import torch
+
+    from sensorium_tpu_torch.parallel import mesh as mesh_lib
+
+    ok = {}
+    for op, expected in (("sum", MESH_WORLD * (MESH_WORLD + 1) / 2), ("max", MESH_WORLD), ("min", 1)):
+        tensor = torch.full((3,), float(mesh.index + 1), device="cuda")
+        mesh_lib.all_reduce(mesh, tensor, op)
+        ok[f"all_reduce_{op}"] = tensor.is_cuda and bool((tensor == expected).all())
+    tensor = torch.full((3,), float(mesh.index + 7), device="cuda")
+    mesh_lib.replicate_tree(mesh, tensor)
+    ok["broadcast"] = tensor.is_cuda and bool((tensor == 7).all())
+    return ok
+
+
+def compare_with_reference(module, loss: float, reference: dict, dtype: str) -> dict:
+    """16a's errors against the one-card step, as fractions of their bounds
+    (see MESH_*); in bf16 each bound adds MESH_BF16_FACTOR times the
+    tensor's own bf16 error."""
+    ref = reference[dtype]
+    fp32 = reference["float32"]
+
+    def bf16_error(kind: str, name: str) -> float:
+        if dtype == "float32":
+            return 0.0
+        return MESH_BF16_FACTOR * float((ref[kind][name] - fp32[kind][name]).abs().max())
+
+    model_max = max(float(g.abs().max()) for g in ref["grads"].values())
+    ratios, bf16_rel, over_bf16 = {}, [], []
+    for name, p in module.named_parameters():
+        expected = ref["grads"][name]
+        diff = float((p.grad.detach().float().cpu() - expected).abs().max())
+        bound = (TRAIN_GRAD_REL_TOL * float(expected.abs().max()) + TRAIN_GRAD_FLOOR * model_max
+                 + bf16_error("grads", name))
+        ratios[f"grad/{name}"] = diff / bound
+        error = bf16_error("grads", name) / MESH_BF16_FACTOR
+        if error > 0.0:
+            bf16_rel.append(error / max(float(fp32["grads"][name].abs().max()), 1e-30))
+            over_bf16.append(diff / error)
+    for name, value in module.state_dict().items():
+        expected = ref["state"][name]
+        if name.endswith((".mean", ".var")):
+            rtol, atol = MESH_STATS_RTOL, MESH_STATS_ATOL
+        else:
+            rtol, atol = MESH_PARAM_RTOL, MESH_DW_ATOL if "dw_kernel" in name else MESH_PARAM_ATOL
+        bound = rtol * expected.abs() + atol + bf16_error("state", name)
+        ratios[f"state/{name}"] = float(((value.detach().float().cpu() - expected).abs() / bound).max())
+    loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    worst = {kind: max((r, k) for k, r in ratios.items() if k.startswith(kind)) for kind in ("grad/", "state/")}
+    result = {"reference_loss": ref["loss"], "reference_peak_gb": ref["peak_gb"], "loss_rel_err": loss_rel,
+              "loss_ratio": loss_rel / (MESH_LOSS_RTOL if dtype == "float32" else MESH_BF16_LOSS_RTOL),
+              "grad_worst": worst["grad/"], "state_worst": worst["state/"], "ratios": ratios}
+    if bf16_rel:
+        # bf16's own error (a gradient tensor's max |bf16 - fp32| over fp32's largest value), and the two
+        # ranks' difference from one card over that error: medians and the largest, over the tensors.
+        result["bf16_error"] = {"median": statistics.median(bf16_rel), "max": max(bf16_rel)}
+        result["ranks_over_bf16_error"] = {"median": statistics.median(over_bf16), "max": max(over_bf16)}
+    return result
+
+
+def mesh_rank(work: Path, rank: int, port: int) -> None:
+    """Phase 16a, in a child process: rank ``rank`` of a gloo group on card 0,
+    one step in each of MESH_DTYPES (the launches counted in bf16, the
+    flagship's dtype)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from sensorium_tpu_torch.engine.model import MouseModel
+    from sensorium_tpu_torch.ops import dw_kernels
+    from sensorium_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=MESH_WORLD, rank=rank)
+    try:
+        mesh = mesh_lib.create_mesh(devices=["cuda:0"])
+        result = {"rank": rank, "collectives": check_gloo_collectives(mesh)}
+        (work / f"rank{rank}.json").write_text(json.dumps(result))
+        if not all(result["collectives"].values()):
+            return
+        reference = torch.load(work / "reference.pt") if rank == 0 else None
+        for dtype in MESH_DTYPES:
+            model = MouseModel(mesh_params(dtype), mesh=mesh)
+            model.build_state(seed=SEED, learning_rate=MESH_LR)
+            batch = synthetic_batch(TRAIN_BATCH)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            start = time.perf_counter()
+            loss = float(model.train_step(batch))
+            step = {"step_seconds": time.perf_counter() - start, "launches": dict(dw_kernels.LAUNCHES),
+                    "loss": loss, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            module = model.state.model
+            sums = torch.stack([t.detach().double().sum() for t in module.state_dict().values()])
+            high = mesh_lib.all_reduce(mesh, sums.clone(), "max")
+            low = mesh_lib.all_reduce(mesh, sums.clone(), "min")
+            step["replicas_identical"] = bool(torch.equal(high, low))
+            if reference is not None:
+                step.update(compare_with_reference(module, loss, reference, dtype))
+            result[dtype] = step
+            del model, module
+            gc.collect()
+            torch.cuda.empty_cache()
+        (work / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_children(commands: list[list[str]], out_dir: Path, label: str) -> None:
+    """Run ``commands`` at once, each one's output to a file; fail if one fails."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    outs = [out_dir / f"{label}_{i}.out" for i in range(len(commands))]
+    procs = []
+    for command, out in zip(commands, outs):
+        with open(out, "w") as handle:
+            procs.append(subprocess.Popen(command, env=env, cwd=REPO, stdout=handle, stderr=subprocess.STDOUT))
+    try:
+        for proc in procs:
+            proc.wait(timeout=CLI_CHILD_TIMEOUT)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, out in zip(procs, outs):
+        if proc.returncode != 0:
+            fail(f"{label}: {proc.args[1:4]} exited {proc.returncode}:\n{out.read_text()[-3000:]}")
+
+
+def mesh_library(record: dict, work: Path) -> dict:
+    """Phase 16a: two ranks on this card against one card's step. Returns each rank's launches."""
+    mesh_dir = work / "mesh"
+    mesh_dir.mkdir()
+    start = time.perf_counter()
+    script = str(Path(__file__).resolve())
+    run_children([[sys.executable, script, "--mesh-child", "reference", "--out", str(mesh_dir)]], mesh_dir,
+                 "mesh reference")
+    reference_s = time.perf_counter() - start
+    from sensorium_tpu_torch.cli.train import free_port
+
+    port = free_port()
+    run_children([[sys.executable, script, "--mesh-child", f"rank{rank}", "--port", str(port), "--out",
+                   str(mesh_dir)] for rank in range(MESH_WORLD)], mesh_dir, "mesh ranks")
+    ranks = [json.loads((mesh_dir / f"rank{rank}.json").read_text()) for rank in range(MESH_WORLD)]
+    (mesh_dir / "reference.pt").unlink()
+    for result in ranks:
+        print(f"mesh: rank {result['rank']}: gloo on CUDA tensors {result['collectives']}", flush=True)
+        if not all(result["collectives"].values()):
+            fail(f"mesh: gloo does not take a CUDA tensor for {result['collectives']}")
+    record["mesh_library"] = {"ranks": ranks, "reference_seconds": reference_s,
+                              "seconds": time.perf_counter() - start}
+    per_step = expected_train_launches()
+    for dtype in MESH_DTYPES:
+        for rank in ranks:
+            step = rank[dtype]
+            print(f"mesh: {dtype}: rank {rank['rank']}: loss {step['loss']:.6f}, step {step['step_seconds']:.2f} s "
+                  f"(the first, with the gloo reductions), peak memory {step['peak_gb']:.2f} GB, launches "
+                  f"{step['launches']}", flush=True)
+        first = ranks[0][dtype]
+        print(f"mesh: {dtype}: one card at batch {TRAIN_BATCH}: loss {first['reference_loss']:.6f}, peak "
+              f"{first['reference_peak_gb']:.2f} GB; two ranks against it, as fractions of their bounds: the loss "
+              f"{first['loss_ratio']:.3g} ({first['loss_rel_err']:.3g} relative), the worst gradient "
+              f"{first['grad_worst'][1]} {first['grad_worst'][0]:.3g}, the worst weight or BN statistic "
+              f"{first['state_worst'][1]} {first['state_worst'][0]:.3g}; replicas identical "
+              f"{[r[dtype]['replicas_identical'] for r in ranks]}", flush=True)
+        if "bf16_error" in first:
+            print(f"mesh: {dtype}: one card's bf16 gradients against its fp32 ones, max |diff| over the tensor's "
+                  f"largest value: median {first['bf16_error']['median']:.3g}, largest {first['bf16_error']['max']:.3g}"
+                  f"; two ranks against one card over that bf16 error: median "
+                  f"{first['ranks_over_bf16_error']['median']:.3g}, largest {first['ranks_over_bf16_error']['max']:.3g}",
+                  flush=True)
+        if not all(r[dtype]["replicas_identical"] for r in ranks):
+            fail(f"mesh: {dtype}: the two ranks' weights differ after the step")
+        for key in ("loss_ratio", "grad_worst", "state_worst"):
+            value = first[key] if key == "loss_ratio" else first[key][0]
+            if not value <= 1.0:
+                fail(f"mesh: {dtype}: the two-rank step exceeds its bound: {key} {first[key]}")
+    for rank in ranks:
+        expected = {key: per_step.get(key, 0) for key in rank["bfloat16"]["launches"]}
+        if rank["bfloat16"]["launches"] != expected:
+            fail(f"mesh: rank {rank['rank']} launched {rank['bfloat16']['launches']} in its step, expected {expected}")
+    return {f"mesh_rank{r['rank']}": r["bfloat16"]["launches"] for r in ranks}
+
+
+def counted_cli(module: str, argv: list[str], launches_path: Path) -> list[str]:
+    return [sys.executable, "-c", COUNTED_MODULE, str(launches_path), module, *argv]
+
+
+def close_logs(label: str, got: list[dict], expected: list[dict]) -> float:
+    """Fails unless ``got``'s epochs are ``expected``'s within the mesh log
+    tolerances; returns the largest relative loss difference."""
+    import numpy as np
+
+    if [(r["stage"], r["epoch"]) for r in got] != [(r["stage"], r["epoch"]) for r in expected]:
+        fail(f"{label}: logged {[(r['stage'], r['epoch']) for r in got]}, expected "
+             f"{[(r['stage'], r['epoch']) for r in expected]}")
+    worst = 0.0
+    for a, b in zip(got, expected):
+        for key in ("train_loss", "val_loss"):
+            worst = max(worst, abs(a[key] - b[key]) / abs(b[key]))
+        corr = max(abs(a[k] - b[k]) for k in b if k.startswith("val_corr"))
+        if worst > MESH_LOG_RTOL or not corr <= MESH_CORR_ATOL or not np.isfinite(a["val_corr"]):
+            fail(f"{label}: epoch {a['epoch']} {a} against {b}")
+    return worst
+
+
+def multihost_cli(record: dict, fit_root: Path, work: Path) -> dict:
+    """Phase 16b: ``cli.train --multihost 127.0.0.1:PORT,1,0`` (NCCL, world
+    size 1) against phase 15, then SIGTERM -> 75 -> ``--resume`` -> 0.
+    Returns the launches of the smoke_001 fold."""
+    import os
+
+    import numpy as np
+
+    from sensorium_tpu_torch.cli.train import free_port
+
+    data_dir = work / "train_cli_mesh"
+    data_dir.mkdir()
+    (data_dir / "sensorium_all_2023").symlink_to(fit_root.resolve(), target_is_directory=True)
+    # World size 1: one visible card, whatever the machine holds.
+    env = {**os.environ, "SENSORIUM_DATA_DIR": str(data_dir),
+           "SENSORIUM_CONFIGS_DIR": str(work / "train_cli_configs"), "SENSORIUM_FOLD_ASSIGNMENT": "trial",
+           "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": "0"}
+    phase15 = record["train_cli"]
+    experiments = data_dir / "experiments"
+    out_path, launches_path = work / "multihost_child.out", work / "multihost_launches.json"
+    runs = {}
+
+    # 1. The smoke_001 fold through NCCL at world size 1.
+    argv = ["-e", CLI_EXPERIMENT, "-f", "0", "--multihost", f"127.0.0.1:{free_port()},1,0"]
+    code, _, wall, _ = run_cli_child(counted_cli("sensorium_tpu_torch.cli.train", argv, launches_path), env,
+                                     out_path)
+    output = out_path.read_text()
+    if code != 0 or "Multihost: process 0/1, 1 global devices (nccl, cuda:0)" not in output:
+        fail(f"multihost cli: exit code {code}:\n{output[-3000:]}")
+    records = read_cli_logs(experiments / CLI_EXPERIMENT / "fold_0")
+    single = phase15["runs"]["smoke_001 fold 0"]
+    worst = close_logs("multihost cli", records, single["epochs"])
+    identical = all(a[k] == b[k] for a, b in zip(records, single["epochs"]) for k in b
+                    if k not in ("time", "epoch_time"))
+    launches = json.loads(launches_path.read_text())
+    if launches != single["launches"]:
+        fail(f"multihost cli: launched {launches}, phase 15's fold {single['launches']}")
+    steps = 2 * phase15["steps_per_epoch"][CLI_EXPERIMENT]
+    rate = steps / sum(r["epoch_time"] for r in records)
+    runs["smoke_001 fold 0"] = {"wall_seconds": wall, "epochs": records, "launches": launches,
+                                "steps_per_second": rate, "max_loss_rel_diff": worst, "identical_logs": identical}
+    print(f"multihost cli: smoke_001 fold 0 through NCCL at world size 1: {wall:.2f} s wall, {steps} steps at "
+          f"{rate:.3f} steps/s over its epochs (phase 15 in-process: {single['steps_per_second']:.3f}); logs "
+          f"against phase 15's: largest loss difference {worst:.3g} relative, every logged number identical: "
+          f"{identical}; launches {launches} (phase 15's)", flush=True)
+
+    # 2. SIGTERM after the warmup epoch -> 75, then --resume -> 0; the warmup epoch's rate beside phase 15's.
+    fold = experiments / CLI_SIGTERM / "fold_0"
+    argv = ["-e", CLI_SIGTERM, "-f", "0", "--multihost", f"127.0.0.1:{free_port()},1,0"]
+    command = [sys.executable, "-m", "sensorium_tpu_torch.cli.train", *argv]
+    code, _, wall, _ = run_cli_child(command, env, out_path, until=lambda: (fold / "log.jsonl").exists() and
+                                     '"stage": "warmup"' in (fold / "log.jsonl").read_text())
+    interrupted = read_cli_logs(fold)
+    if code != 75 or not (fold / "train_state.ckpt").exists():
+        fail(f"multihost cli: SIGTERM gave exit code {code}, expected 75 and a train state:\n"
+             f"{out_path.read_text()[-3000:]}")
+    sigterm_steps = phase15["steps_per_epoch"][CLI_SIGTERM]
+    rate = sigterm_steps / interrupted[0]["epoch_time"]
+    single_rate = phase15["runs"]["SIGTERM"]["steps_per_second"]
+    runs["SIGTERM"] = {"wall_seconds": wall, "returncode": code, "steps_per_second": rate, "epochs": interrupted,
+                       "phase15_steps_per_second": single_rate, "mesh_path_cost": 1.0 - rate / single_rate}
+    print(f"multihost cli: SIGTERM: exit code {code} in {wall:.2f} s; the warmup epoch's {sigterm_steps} steps "
+          f"at {rate:.3f} steps/s (validation included) against phase 15's {single_rate:.3f} without a mesh: "
+          f"the mesh path costs {100 * runs['SIGTERM']['mesh_path_cost']:.1f}% on one card", flush=True)
+    argv[-1] = f"127.0.0.1:{free_port()},1,0"
+    code, _, wall, _ = run_cli_child([sys.executable, "-m", "sensorium_tpu_torch.cli.train", *argv, "--resume"],
+                                     env, out_path)
+    epochs = [r["epoch"] for r in read_cli_logs(fold)]
+    if code != 0 or epochs != list(range(2)) or "Resumed from epoch" not in out_path.read_text():
+        fail(f"multihost cli: the resume gave exit code {code}, epochs {epochs}:\n{out_path.read_text()[-3000:]}")
+    runs["SIGTERM --resume"] = {"wall_seconds": wall, "returncode": code}
+    print(f"multihost cli: SIGTERM --resume: exit code 0 in {wall:.2f} s, epochs logged {epochs}", flush=True)
+    shutil.rmtree(experiments / CLI_SIGTERM)
+    if not np.isfinite(rate):
+        fail("multihost cli: no steps/s")
+    record["multihost_cli"] = {"runs": runs}
+    return launches
+
+
+def fp32_checkpoint(source: Path, target: Path) -> None:
+    """``source``'s weights under its config with ``dtype`` float32."""
+    from sensorium_tpu_torch.engine import checkpoint as ckpt
+
+    payload = ckpt.load_model_checkpoint(source)
+    params = payload["params"]
+    name, nn_params = params["nn_module"]
+    ckpt.save_model_checkpoint(target, {**params, "nn_module": (name, {**nn_params, "dtype": "float32"})},
+                               payload["nn_state"])
+
+
+def mesh_cards_cli(record: dict, fit_root: Path, work: Path) -> None:
+    """Phase 16c, with two cards or more: ``cli.train`` over every card
+    (``--mesh data``, the default), then ``cli.predict -s folds --mesh``
+    against one card, in fp32: in bf16 a window's roundings depend on the
+    size of the forward it is in, which the mesh divides (PERF.md, phase
+    16c)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from sensorium_tpu_torch.cli import predict
+    from sensorium_tpu_torch.data import mouse_data
+    from sensorium_tpu_torch.utils.misc import get_best_model_path
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"mesh cards: 16c did not run: {cards} card visible (it needs 2 or more)", flush=True)
+        record["mesh_cards"] = {"ran": False, "cards": cards}
+        return
+    data_dir = work / "train_cli_cards"
+    data_dir.mkdir()
+    (data_dir / "sensorium_all_2023").symlink_to(fit_root.resolve(), target_is_directory=True)
+    env = {**os.environ, "SENSORIUM_DATA_DIR": str(data_dir),
+           "SENSORIUM_CONFIGS_DIR": str(work / "train_cli_configs"), "SENSORIUM_FOLD_ASSIGNMENT": "trial",
+           "PYTHONPATH": str(REPO)}
+    out_path = work / "mesh_cards_child.out"
+    code, _, wall, _ = run_cli_child([sys.executable, "-m", "sensorium_tpu_torch.cli.train", "-e", CLI_EXPERIMENT,
+                                      "-f", "0"], env, out_path)
+    output = out_path.read_text()
+    if code != 0 or f"Data parallel over {cards} cards" not in output:
+        fail(f"mesh cards: cli.train over {cards} cards gave exit code {code}:\n{output[-3000:]}")
+    records = read_cli_logs(data_dir / "experiments" / CLI_EXPERIMENT / "fold_0")
+    worst = close_logs("mesh cards", records, record["train_cli"]["runs"]["smoke_001 fold 0"]["epochs"])
+    steps = 2 * record["train_cli"]["steps_per_epoch"][CLI_EXPERIMENT]
+    rate = steps / sum(r["epoch_time"] for r in records)
+    print(f"mesh cards: cli.train over {cards} cards: {wall:.2f} s wall, {rate:.3f} steps/s over its epochs; "
+          f"largest loss difference from phase 15's one card {worst:.3g} relative", flush=True)
+
+    trained = get_best_model_path(data_dir / "experiments" / CLI_EXPERIMENT / "fold_0")
+    checkpoint = work / "mesh_cards_fp32" / trained.name
+    checkpoint.parent.mkdir()
+    fp32_checkpoint(trained, checkpoint)
+    for fold in constants.folds_splits:
+        fold_dir = data_dir / "experiments" / MESH_PREDICT / fold
+        fold_dir.mkdir(parents=True)
+        (fold_dir / checkpoint.name).symlink_to(checkpoint)
+    saved = (constants.data_dir, constants.sensorium_dir, constants.experiments_dir, constants.predictions_dir)
+    point_data_dir(data_dir)
+    mouse_data.get_folds_tiers.cache_clear()
+    walls = {}
+    try:
+        for label, flags in (("one card", []), ("mesh", ["--mesh"])):
+            constants.predictions_dir = data_dir / f"predictions_{label.replace(' ', '_')}"
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            predict.main(["-e", MESH_PREDICT, "-s", "folds", *flags])
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - start
+        worst_rel, count = 0.0, 0
+        for path in sorted((data_dir / "predictions_one_card").rglob("*.npy")):
+            expected = np.load(path)
+            got = np.load(data_dir / "predictions_mesh" / path.relative_to(data_dir / "predictions_one_card"))
+            worst_rel = max(worst_rel, float(np.max(np.abs(got - expected)) / np.max(np.abs(expected))))
+            count += 1
+    finally:
+        constants.data_dir, constants.sensorium_dir, constants.experiments_dir, constants.predictions_dir = saved
+        mouse_data.get_folds_tiers.cache_clear()
+    print(f"mesh cards: cli.predict -s folds in fp32 over {cards} cards ({walls['mesh']:.2f} s, loads included) "
+          f"against one card ({walls['one card']:.2f} s): {count} trials, max |diff| / max |one card| "
+          f"{worst_rel:.3g} (tolerance {CPU_REL_TOL})", flush=True)
+    if count == 0 or not worst_rel <= CPU_REL_TOL:
+        fail(f"mesh cards: the mesh prediction differs from one card by {worst_rel} ({count} trials)")
+    record["mesh_cards"] = {"ran": True, "cards": cards, "wall_seconds": wall, "steps_per_second": rate,
+                            "epochs": records, "max_loss_rel_diff": worst, "predict_seconds": walls,
+                            "predict_max_rel_err": worst_rel}
+
+
 def _summed(rows: list[dict], name: str) -> dict:
     """Times and bound of ``name`` summed over the flagship blocks' calls (bf16 rows)."""
     flagship = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16" and r["blocks"]]
@@ -1983,6 +2456,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
                         help="directory for chip_smoke.json and chip_smoke_trace.json")
+    parser.add_argument("--mesh-child", choices=["reference", *(f"rank{r}" for r in range(MESH_WORLD))],
+                        help=argparse.SUPPRESS)  # phase 16a's child processes, which write into --out
+    parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
     try:
         import torch
@@ -1992,6 +2468,12 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
     if not (REPO / "sensorium_tpu_torch" / "csrc").is_dir():
         fail(f"no sensorium_tpu_torch/csrc beside {Path(__file__).name}: run it from a checkout of the repo")
+    if args.mesh_child == "reference":
+        mesh_reference(args.out)
+        return 0
+    if args.mesh_child:
+        mesh_rank(args.out, int(args.mesh_child.removeprefix("rank")), args.port)
+        return 0
     torch.backends.cudnn.allow_tf32 = False  # every fp32 comparison runs without TF32
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -2036,12 +2518,17 @@ def main() -> int:
         for name, key, phase in (("import", "import_proof", lambda: import_proof(record, work)),
                                  ("resume", "checkpoints", lambda: checkpoints(record, work)),
                                  ("submission", "submission_flow", lambda: submission_flow(record, fit_root, work)),
-                                 ("train_cli", "train_cli", lambda: train_cli(record, fit_root, work))):
+                                 ("train_cli", "train_cli", lambda: train_cli(record, fit_root, work)),
+                                 ("multihost_cli", "multihost_cli", lambda: multihost_cli(record, fit_root, work))):
             start = time.perf_counter()
             path_launches[name] = phase()
             record[key]["phase_seconds"] = time.perf_counter() - start
             print(f"{key}: phase took {record[key]['phase_seconds']:.1f} s", flush=True)
         path_launches["train_cli_distill"] = record["train_cli"]["distill_launches"]
+        start = time.perf_counter()
+        path_launches.update(mesh_library(record, work))
+        mesh_cards_cli(record, fit_root, work)
+        print(f"mesh: 16a and 16c took {time.perf_counter() - start:.1f} s", flush=True)
     shutil.rmtree(fit_root)  # made anew from the seed by every run
 
     summary = kernel_summary(rows + backward_rows, train_launches, serve_launches, fused_rows, fused_launches,

@@ -6,6 +6,14 @@ preallocated batch (``dataset.fill_into``); a small queue keeps batches ready
 ahead of the card. A dataset without fixed row shapes (``row_shapes`` None)
 goes through ``get`` and ``collate_mice_batch`` instead. Batches are numpy
 ``MiceBatch``es; ``MouseModel`` stages them on the device.
+
+``shard=(index, extent)`` makes the loader fill only the rows of each global
+batch that shard ``index`` of a data-parallel mesh holds
+(``parallel.mesh.shard_rows``: its slice of each of ``microbatches`` equal
+microbatches). The order is the unsharded loader's and samples are keyed by
+``(seed, epoch, index)``, so the rows are those of the global batch, bit for
+bit. A short last batch (no ``drop_last``) is padded to a multiple of
+``extent`` with zero-weight rows of zeros.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from sensorium_tpu_torch.data.datasets import MiceBatch, collate_mice_batch
+from sensorium_tpu_torch.parallel.mesh import shard_rows
 
 
 def resolve_workers(num_threads: int) -> int:
@@ -47,6 +56,8 @@ class MiceDataLoader:
         num_threads: int = 8,
         drop_last: bool = False,
         prefetch: int = 3,
+        shard: tuple[int, int] | None = None,
+        microbatches: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -55,6 +66,8 @@ class MiceDataLoader:
         self.num_threads = num_threads
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.shard = shard
+        self.microbatches = microbatches
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -71,6 +84,14 @@ class MiceDataLoader:
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(order)
         return order
+
+    def _batch_indexes(self, order: np.ndarray, b: int) -> np.ndarray:
+        """The dataset indexes of batch ``b``'s rows (this shard's; -1 for padding)."""
+        indexes = order[b * self.batch_size : (b + 1) * self.batch_size]
+        if self.shard is None:
+            return indexes
+        rows = shard_rows(len(indexes), *self.shard, chunks=self.microbatches, pad=not self.drop_last)
+        return np.where(rows < len(indexes), indexes[np.minimum(rows, len(indexes) - 1)], -1)
 
     def __iter__(self):
         order = self._index_order()
@@ -91,6 +112,9 @@ class MiceDataLoader:
 
             def fill_rows(rows):
                 for row, i in rows:
+                    if i < 0:  # padding: zeros, weight 0
+                        inputs[row] = 0.0
+                        continue
                     weights[row, self.dataset.fill_into(int(i), epoch, inputs[row], targets[row])] = 1.0
 
             # One contiguous chunk of rows per worker: one task per row would
@@ -103,8 +127,14 @@ class MiceDataLoader:
             return MiceBatch(inputs=inputs, targets=targets, weights=weights)
 
         def make_batch_collate(pool, batch_indexes):
-            samples = list(pool.map(lambda i: self.dataset.get(int(i), epoch), batch_indexes))
-            return collate_mice_batch(samples, num_mice=num_mice, max_neurons=getattr(self.dataset, "max_neurons", None))
+            real = [i for i in batch_indexes if i >= 0]  # padding rows come last
+            samples = list(pool.map(lambda i: self.dataset.get(int(i), epoch), real))
+            batch = collate_mice_batch(samples, num_mice=num_mice, max_neurons=getattr(self.dataset, "max_neurons", None))
+            padding = len(batch_indexes) - len(real)
+            if padding == 0:
+                return batch
+            return MiceBatch(*(np.concatenate([a, np.zeros((padding,) + a.shape[1:], a.dtype)])
+                               for a in (batch.inputs, batch.targets, batch.weights)))
 
         make_batch = make_batch_collate if row_shapes is None else make_batch_fill
 
@@ -114,7 +144,7 @@ class MiceDataLoader:
                     for b in range(num_batches):
                         if stop.is_set():
                             return
-                        out_queue.put(make_batch(pool, order[b * self.batch_size : (b + 1) * self.batch_size]))
+                        out_queue.put(make_batch(pool, self._batch_indexes(order, b)))
                 out_queue.put(None)
             except BaseException as exc:  # handed to the consumer, which raises it
                 out_queue.put(exc)

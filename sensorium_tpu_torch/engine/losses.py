@@ -17,6 +17,11 @@ Elementwise Poisson NLL follows ``torch.nn.PoissonNLLLoss``:
 ``pred - target * log(pred + eps)`` (``log_input=False``) or
 ``exp(pred) - target * pred`` (``log_input=True``), plus the Stirling term
 where ``target > 1`` with ``full=True``.
+
+With a data-parallel ``mesh`` each process holds its rows of the global
+batch, and the weight sum (and the distillation's count of filled cells) is
+the global batch's, reduced over the mesh: each process's loss is then its
+share of the global loss, and the shares add up to it, as in JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from sensorium_tpu_torch.parallel import mesh as mesh_lib
 
 
 def poisson_nll(prediction: torch.Tensor, target: torch.Tensor, eps: float = 1e-8,
@@ -48,9 +55,9 @@ def _broadcast_target(target: torch.Tensor, prediction: torch.Tensor) -> torch.T
     return target if target.ndim == prediction.ndim else target[None]
 
 
-def _masked_cells(prediction, target, weights, elem_fn, neuron_mask=None):
+def _masked_cells(prediction, target, weights, elem_fn, neuron_mask=None, mesh=None):
     """Normalized weights, selection-masked elementwise loss, per-cell sums."""
-    weights = weights / weights.sum()
+    weights = weights / mesh_lib.all_reduce(mesh, weights.sum())
     active = weights.T != 0.0  # (M, B)
     prediction = torch.where(active[:, :, None, None], prediction, torch.zeros((), dtype=prediction.dtype,
                                                                                device=prediction.device))
@@ -64,7 +71,7 @@ def _masked_cells(prediction, target, weights, elem_fn, neuron_mask=None):
 
 def mice_poisson_loss(prediction: torch.Tensor, target: torch.Tensor, weights: torch.Tensor, eps: float = 1e-8,
                       log_input: bool = False, full: bool = False,
-                      neuron_mask: torch.Tensor | None = None) -> torch.Tensor:
+                      neuron_mask: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
     """Weighted multi-mouse Poisson NLL.
 
     With ``log_input=False`` padded rows (prediction == target == 0) add
@@ -74,19 +81,23 @@ def mice_poisson_loss(prediction: torch.Tensor, target: torch.Tensor, weights: t
     def elem(p, t):
         return poisson_nll(p, t, eps, log_input, full)
 
-    return _masked_cells(prediction, target, weights, elem, neuron_mask)
+    return _masked_cells(prediction, target, weights, elem, neuron_mask, mesh)
 
 
 def inject_distill_targets(target: torch.Tensor, weights: torch.Tensor, teacher_prediction: torch.Tensor,
-                           distill_ratio: float) -> tuple[torch.Tensor, torch.Tensor]:
+                           distill_ratio: float, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Fill every zero-weight (sample, mouse) cell with the teacher's
     prediction as its target and the weight ``ratio / (1 - ratio) *
     sum(weights) / #distilled``, so that after normalization the distilled
     cells carry ``distill_ratio`` of the loss. Returns the dense
     (M, B, N_max, T) target and the filled (B, M) weights."""
     active = weights != 0.0  # (B, M)
-    num_distilled = (~active).sum()
-    distill_weight = distill_ratio / (1.0 - distill_ratio) * weights.sum() / num_distilled
+    if mesh is None:
+        total, num_distilled = weights.sum(), (~active).sum()
+    else:
+        total, num_distilled = mesh_lib.all_reduce(
+            mesh, torch.stack([weights.sum(), (~active).sum().to(weights.dtype)]))
+    distill_weight = distill_ratio / (1.0 - distill_ratio) * total / num_distilled
     full_weights = torch.where(active, weights, distill_weight)
     full_target = torch.where(active.T[:, :, None, None], target[None], teacher_prediction)
     return full_target, full_weights
@@ -121,8 +132,8 @@ def _weighted_mice_reduce(elem_fn: Callable) -> Callable:
     """A stock elementwise loss over the padded mice batch, with the same
     weighting and selection masking as ``mice_poisson_loss``."""
 
-    def loss(prediction, target, weights, **kwargs):
-        return _masked_cells(prediction, target, weights, lambda p, t: elem_fn(p, t, **kwargs))
+    def loss(prediction, target, weights, mesh=None, **kwargs):
+        return _masked_cells(prediction, target, weights, lambda p, t: elem_fn(p, t, **kwargs), mesh=mesh)
 
     return loss
 
@@ -146,8 +157,9 @@ _LOSS_KWARGS = {
 }
 
 
-def get_loss(name: str, loss_params: dict, neuron_mask: np.ndarray | None = None) -> Callable:
-    """The loss a config names, as ``loss_fn(prediction, target, weights)``.
+def get_loss(name: str, loss_params: dict, neuron_mask: np.ndarray | None = None, mesh=None) -> Callable:
+    """The loss a config names, as ``loss_fn(prediction, target, weights)``;
+    with a ``mesh``, each process's share of the global batch's loss.
 
     ``mice_poisson`` defaults to ``log_input=False`` (the reference's
     ``MicePoissonLoss``), the stock ``PoissonNLLLoss`` name to True (torch's
@@ -171,7 +183,7 @@ def get_loss(name: str, loss_params: dict, neuron_mask: np.ndarray | None = None
 
     def loss_fn(prediction, target, weights):
         if mask is None:
-            return base(prediction, target, weights, **kwargs)
-        return base(prediction, target, weights, neuron_mask=mask.to(prediction.device), **kwargs)
+            return base(prediction, target, weights, mesh=mesh, **kwargs)
+        return base(prediction, target, weights, neuron_mask=mask.to(prediction.device), mesh=mesh, **kwargs)
 
     return loss_fn

@@ -18,6 +18,18 @@ the dropout generator, which JAX does not share.
     model.save_train_state("train_state.ckpt", extra={"epoch": 0})
     model.load_train_state("train_state.ckpt") # into a model built from the same config
     restored = load_model("model-000-0.123456.ckpt", device="cuda")
+
+Data parallelism: ``MouseModel(argus_params, mesh=mesh)`` (a
+``parallel.mesh.Mesh`` over a process group, one card a process) runs on
+the mesh's card. The weights are broadcast from the first process after
+``build_state``, ``init_from_checkpoint`` and ``load_train_state``.
+``train_step`` and ``val_step`` take the global batch and keep this
+process's rows (a loader built with ``shard=`` hands them over already):
+a train batch that does not divide over the mesh raises, a val batch is
+padded with zero-weight rows. Losses, gradients and the metric sums are
+the global batch's. In ``fit`` the processes agree on a preemption signal
+(an ``all_reduce`` of the flag at each check point), so that none of them
+is left waiting in a collective.
 """
 
 from __future__ import annotations
@@ -43,7 +55,8 @@ from sensorium_tpu_torch.engine.state import TrainState
 from sensorium_tpu_torch.engine.steps import make_predict_step, make_train_step, make_val_step
 from sensorium_tpu_torch.models.dwiseneuro import neuron_validity_mask
 from sensorium_tpu_torch.models.registry import get_nn_module
-from sensorium_tpu_torch.utils.device import resolve_device
+from sensorium_tpu_torch.parallel import mesh as mesh_lib
+from sensorium_tpu_torch.utils.device import fetch_to_host, resolve_device
 
 
 class MouseModel:
@@ -52,17 +65,24 @@ class MouseModel:
     ``params`` is the config's ``argus_params`` dict: ``nn_module``,
     ``loss``, ``optimizer``, ``frame_stack``, ``inputs_processor``,
     ``iter_size``, optionally ``grad_clip``. The network itself is built by
-    ``build_state`` from its seed.
+    ``build_state`` from its seed. With a ``mesh`` the model runs on the
+    mesh's device, and ``device`` is not read.
     """
 
-    def __init__(self, params: dict, device: str | torch.device = "cuda"):
+    def __init__(self, params: dict, device: str | torch.device = "cuda", mesh: mesh_lib.Mesh | None = None):
+        if mesh is not None:
+            if len(mesh.devices) != 1:
+                raise ValueError(f"a training mesh holds one device a process, this one {mesh.devices}: "
+                                 "start one process a card (cli.train does)")
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.params = params
         self.nn_name, self.nn_params = params["nn_module"]
         loss_name, loss_params = params.get("loss", ("mice_poisson", {}))
         outputs = self.nn_params.get("readout_outputs")
         neuron_mask = neuron_validity_mask(outputs) if outputs is not None else None
-        self.loss_fn = get_loss(loss_name, loss_params, neuron_mask=neuron_mask)
+        self.loss_fn = get_loss(loss_name, loss_params, neuron_mask=neuron_mask, mesh=mesh)
         self.optimizer_spec = params.get("optimizer", ("AdamW", {"lr": 1e-3}))
         self.grad_clip = float(params.get("grad_clip", 0.0) or 0.0)
         self.iter_size = int(params.get("iter_size", 1))
@@ -119,6 +139,7 @@ class MouseModel:
         of the update count; None takes the config's ``lr``."""
         self.nn_module = get_nn_module(self.nn_name, self.nn_params, device=self.device,
                                        generator=torch.Generator().manual_seed(seed)).train()
+        mesh_lib.replicate_tree(self.mesh, self.nn_module)
         self.schedule = learning_rate if callable(learning_rate) else None
         first_lr = learning_rate(0) if callable(learning_rate) else learning_rate
         opt_name, opt_params = self.optimizer_spec
@@ -150,6 +171,13 @@ class MouseModel:
         if self.state.ema_model is not None:
             # load_state_dict copies: the EMA keeps tensors of its own.
             self.state.ema_model.load_state_dict(weights, strict=True)
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """The first process's weights (and EMA) on every process of the mesh."""
+        mesh_lib.replicate_tree(self.mesh, self.state.model)
+        if self.state.ema_model is not None:
+            mesh_lib.replicate_tree(self.mesh, self.state.ema_model)
 
     # ---------------------------------------------------------------- steps
 
@@ -165,6 +193,7 @@ class MouseModel:
                 grad_clip=self.grad_clip,
                 distill_ratio=self.distill_ratio,
                 teacher_model=self.teacher_module,
+                mesh=self.mesh,
             )
         return self._train_step
 
@@ -194,18 +223,42 @@ class MouseModel:
 
         return self._stage_inputs(batch.inputs), to_device(batch.targets), to_device(batch.weights)
 
-    def train_step(self, batch: MiceBatch) -> torch.Tensor:
-        """One optimizer update; returns the loss as a 0-d tensor on the device."""
+    def _shard(self, batch: MiceBatch, train: bool) -> MiceBatch:
+        """This process's rows of a global batch: each microbatch's slice for
+        training (a batch that does not divide over the mesh raises), the
+        zero-weight padded batch's for evaluation."""
+        if self.mesh is None:
+            return batch
+        extent = mesh_lib.data_extent(self.mesh)
+        if train and len(batch.inputs) % extent:
+            raise ValueError(f"Train batch of {len(batch.inputs)} does not divide the data axis ({extent}); "
+                             "use drop_last=True: padding would alter BN batch statistics")
+        arrays = mesh_lib.shard_batch(self.mesh, batch.inputs, batch.targets, batch.weights,
+                                      chunks=self.iter_size if train else 1, pad=not train)
+        return MiceBatch(*arrays)
+
+    def train_step(self, batch: MiceBatch, sharded: bool = False) -> torch.Tensor:
+        """One optimizer update; returns the loss as a 0-d tensor on the device.
+        ``sharded``: the batch is this process's rows already (a loader built
+        with ``shard=``), not the global batch."""
         step = self._ensure_train_step()
+        if not sharded:
+            batch = self._shard(batch, train=True)
         return step(self.state, *self._stage(batch))
 
-    def val_step(self, batch: MiceBatch):
+    def val_step(self, batch: MiceBatch, sharded: bool = False):
         """``(loss, prediction, targets, weights)`` on the eval (EMA) weights;
-        the staged targets and weights come back for the metrics."""
+        the staged targets and weights come back for the metrics. With a
+        mesh, the loss is the global batch's and the rest this process's rows."""
         if self.state is None:
             raise RuntimeError("Call build_state() before validation")
+        if not sharded:
+            batch = self._shard(batch, train=False)
         inputs, targets, weights = self._stage(batch)
         loss, prediction = self._val_step(self.state.eval_model, inputs, targets, weights)
+        if self.mesh is not None:
+            # An inference tensor takes no in-place update outside inference mode: reduce a copy.
+            loss = mesh_lib.all_reduce(self.mesh, loss.clone())
         return loss, prediction, targets, weights
 
     def predict(self, inputs, mouse_index: int | None = None) -> torch.Tensor:
@@ -249,14 +302,48 @@ class MouseModel:
         epoch's callbacks: the train state goes to ``preemption_save_path``
         (if given), with ``extra["epoch"]`` the last epoch completed, and
         ``TrainingPreempted`` is raised. An epoch cut short is redone on
-        resume."""
+        resume. Over a process group every process must pass a handler: they
+        act on a signal when any of them has latched one (an ``all_reduce``
+        of the flag at each check point), and the caller gives the save path
+        to one of them. After a train step they act on the flag reduced
+        after the step before, one step late: reading it waits for that step
+        only, so the host still prepares the next batch while the card runs
+        this one.
+
+        With a mesh, a loader built with ``shard=`` (this process's index and
+        the mesh's extent) hands over this process's rows; any other loader
+        hands over global batches, which ``train_step`` and ``val_step`` shard.
+        The metrics need ``batch_stats``: their sums are reduced over the mesh."""
         if self.state is None:
             raise RuntimeError("Call build_state() before fit()")
+        if self.mesh is not None and any(not hasattr(metric, "batch_stats") for metric in metrics):
+            raise ValueError("under a mesh every metric needs batch_stats (sums that reduce over the mesh)")
         engine_state = EngineState(model=self, stage=stage, logger=self.logger)
 
-        def check_preempted(epochs_behind: int = 1) -> None:
+        pending: list[tuple[torch.Tensor, torch.cuda.Event | None]] = []  # reduced flags not yet read
+
+        def triggered(after_step: bool) -> bool:
+            if preemption is None:
+                return False
+            if self.mesh is None or not self.mesh.distributed:
+                return preemption.triggered
+            # Filled on the device: a copy from the host would wait for the step.
+            flag = torch.full((1,), float(preemption.triggered), device=self.device)
+            pending.append(fetch_to_host(mesh_lib.all_reduce(self.mesh, flag, "max")))
+            if not after_step:  # this check point's own flag; the signal stays latched, so it covers the older ones
+                host, copied = pending.pop()
+                pending.clear()
+            elif len(pending) == 1:
+                return False
+            else:
+                host, copied = pending.pop(0)
+            if copied is not None:
+                copied.synchronize()
+            return bool(host.item())
+
+        def check_preempted(epochs_behind: int = 1, after_step: bool = False) -> None:
             """``epochs_behind`` 1 inside an epoch, 0 once its callbacks ran."""
-            if preemption is None or not preemption.triggered:
+            if not triggered(after_step):
                 return
             epoch_done = engine_state.global_epoch - epochs_behind
             if preemption_save_path is not None:
@@ -288,22 +375,26 @@ class MouseModel:
             # The losses stay on the device until the epoch ends: one copy
             # to the host per epoch, not a wait for the card every step.
             losses = []
+            sharded = self._loader_sharded(train_loader, chunks=self.iter_size)
             for batch in train_loader:
-                losses.append(self.train_step(batch))
-                check_preempted()
+                losses.append(self.train_step(batch, sharded=sharded))
+                check_preempted(after_step=True)
             engine_state.metrics["train_loss"] = _mean_on_host(losses)
 
             if val_loader is not None:
                 for metric in metrics:
                     metric.reset()
                 val_losses = []
+                sharded = self._loader_sharded(val_loader, chunks=1)
                 for batch in val_loader:
-                    loss, prediction, targets, weights = self.val_step(batch)
+                    loss, prediction, targets, weights = self.val_step(batch, sharded=sharded)
                     val_losses.append(loss)
                     for metric in metrics:
                         if hasattr(metric, "batch_stats"):
                             # Reduced on the device: only (M, N_max, 5) sums cross to the host.
                             counts, sums = metric.batch_stats(prediction, targets, weights)
+                            mesh_lib.all_reduce(self.mesh, counts)
+                            mesh_lib.all_reduce(self.mesh, sums)
                             metric.update_stats(counts.cpu().numpy(), sums.cpu().numpy())
                         else:
                             metric.update(prediction.cpu().numpy(), batch.targets, batch.weights)
@@ -324,6 +415,19 @@ class MouseModel:
             check_preempted(epochs_behind=0)
             if engine_state.stopped:
                 break
+
+    def _loader_sharded(self, loader, chunks: int) -> bool:
+        """Whether ``loader`` hands over this process's rows (built with
+        ``shard=``); raises if they are not this mesh's, or not cut by
+        ``chunks`` microbatches."""
+        shard = getattr(loader, "shard", None)
+        if shard is None:
+            return False
+        expected = None if self.mesh is None else (self.mesh.index, mesh_lib.data_extent(self.mesh))
+        if tuple(shard) != expected or getattr(loader, "microbatches", 1) != chunks:
+            raise ValueError(f"the loader holds shard {tuple(shard)} of {getattr(loader, 'microbatches', 1)} "
+                             f"microbatches a batch; this model needs shard {expected} of {chunks}")
+        return True
 
     def _current_lr(self) -> float | None:
         """The scheduled lr at the current update count, for the log."""
@@ -397,6 +501,7 @@ class MouseModel:
                                          "param_groups": state.optimizer.state_dict()["param_groups"]})
         state.generator.set_state(ckpt.as_tensor(tree["generator"]))
         state.step = int(tree["step"])
+        self._replicate()
         return extra
 
 
@@ -413,19 +518,22 @@ def _leaves(tree: dict, prefix: str = ""):
 def _refuse_sharded(file_path) -> None:
     if Path(file_path).suffix == ".orbax":
         raise NotImplementedError(
-            "the sharded (orbax) train-state format comes with multi-GPU training (ROADMAP.md A.4)")
+            "the sharded (orbax) train-state format is not ported yet (ROADMAP.md §A.4b)")
 
 
-def load_model(file_path, device: str | torch.device = "cuda") -> MouseModel:
+def load_model(file_path, device: str | torch.device = "cuda", mesh: mesh_lib.Mesh | None = None) -> MouseModel:
     """A ``MouseModel`` from a model checkpoint (the port's or the JAX
     package's): the module built from the checkpoint's config, its saved
-    eval weights loaded, on ``device``; ``predict`` and ``val_step`` run them."""
-    device = resolve_device(device)
+    eval weights loaded, on ``device`` (with a ``mesh``, on the mesh's, the
+    first process's weights on every process); ``predict`` and
+    ``val_step`` run them."""
+    device = resolve_device(device if mesh is None else mesh.device)
     payload = ckpt.load_model_checkpoint(file_path)
-    model = MouseModel(payload["params"], device=device)
+    model = MouseModel(payload["params"], device=device, mesh=mesh)
     nn_state = payload["nn_state"]
     module = get_nn_module(model.nn_name, model.nn_params, device=model.device)
     module.load_state_dict(from_jax_variables(nn_state["params"], nn_state.get("batch_stats", {})), strict=True)
+    mesh_lib.replicate_tree(mesh, module)
     model.nn_module = module
     model.state = TrainState(step=0, model=module, optimizer=None, ema_model=None,
                              generator=torch.Generator(device=model.device).manual_seed(0))

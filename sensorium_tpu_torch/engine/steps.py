@@ -14,6 +14,18 @@ Counterpart of ``sensorium_tpu/engine/steps.py``. One train step:
   the update count, the optimizer step, and the EMA over parameters and BN
   statistics.
 
+With a data-parallel ``mesh`` the step gets this process's rows of the
+global batch (its slice of each microbatch, ``parallel.mesh.shard_rows``)
+and runs its forwards and backwards under ``parallel.mesh.active``: BN
+takes the global batch's statistics, the masks are the global batch's, and
+the loss is this process's share of the global loss (``get_loss(mesh=)``).
+After the microbatches the gradients are summed over the mesh in flat
+buckets (``reduce_gradients``; a sum, because the shares carry the global
+normalization, as JAX's psum does), and so is the reported loss. Clipping,
+the lr and AdamW then run on the same gradients on every process, so the
+parameters, the BN statistics and the EMA stay identical without more
+communication.
+
 Mixed precision is the model's own: fp32 master parameters cast to bf16
 where the JAX model casts them. No autocast and no GradScaler (bf16 keeps
 fp32's exponent range).
@@ -29,6 +41,7 @@ from torch import nn
 from sensorium_tpu_torch.engine.ema import ema_tensors, ema_update
 from sensorium_tpu_torch.engine.losses import inject_distill_targets
 from sensorium_tpu_torch.engine.state import TrainState
+from sensorium_tpu_torch.parallel import mesh as mesh_lib
 
 
 def make_train_step(
@@ -39,10 +52,12 @@ def make_train_step(
     grad_clip: float = 0.0,
     distill_ratio: float = 0.0,
     teacher_model: nn.Module | None = None,
+    mesh: mesh_lib.Mesh | None = None,
 ) -> Callable:
     """Returns ``step(state, inputs, targets, weights) -> loss``, which
     updates ``state`` in place and returns the loss as a 0-d fp32 tensor on
-    the model's device (reading it waits for the card)."""
+    the model's device (reading it waits for the card). With a ``mesh``,
+    ``loss_fn`` must be that mesh's (``get_loss(mesh=)``)."""
     use_distill = distill_ratio > 0.0 and teacher_model is not None
 
     def chunk_loss(state: TrainState, inputs, targets, weights):
@@ -50,7 +65,7 @@ def make_train_step(
         if use_distill:
             with torch.no_grad():
                 teacher_pred = teacher_model(inputs).float()
-            targets, weights = inject_distill_targets(targets, weights, teacher_pred, distill_ratio)
+            targets, weights = inject_distill_targets(targets, weights, teacher_pred, distill_ratio, mesh)
         return loss_fn(prediction, targets, weights)
 
     def step(state: TrainState, inputs, targets, weights) -> torch.Tensor:
@@ -65,13 +80,17 @@ def make_train_step(
         optimizer.zero_grad(set_to_none=True)
         chunk = batch // iter_size
         total = torch.zeros((), dtype=torch.float32, device=inputs.device)
-        for i in range(iter_size):
-            part = slice(i * chunk, (i + 1) * chunk)
-            loss = chunk_loss(state, inputs[part], targets[part], weights[part])
-            if iter_size > 1:
-                loss = loss / iter_size
-            loss.backward()
-            total += loss.detach()
+        with mesh_lib.active(mesh):
+            for i in range(iter_size):
+                part = slice(i * chunk, (i + 1) * chunk)
+                loss = chunk_loss(state, inputs[part], targets[part], weights[part])
+                if iter_size > 1:
+                    loss = loss / iter_size
+                loss.backward()
+                total += loss.detach()
+        if mesh is not None:
+            mesh_lib.reduce_gradients(mesh, model.parameters())
+            mesh_lib.all_reduce(mesh, total)
         if grad_clip > 0.0:
             torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
         if schedule is not None:

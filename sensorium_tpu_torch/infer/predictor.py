@@ -23,10 +23,16 @@ by blending overlapping windows at every valid anchor (stride 1), with
   a split's trials: one disk read and one upload a trial for all of them,
   the mean on the device, and each trial's copy to the host overlapped
   with the next trial's forwards.
+* ``Predictor(..., mesh=mesh)``, a mesh of this process's cards
+  (``parallel.mesh.create_mesh()``): one eval replica a card; each chunk's
+  windows are split over the replicas and their predictions gathered onto
+  the first card for the blend. Trials spread over hosts through
+  ``predict_mouse_split``'s ``trial_shard`` instead.
 """
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 from typing import NamedTuple
 
@@ -40,7 +46,8 @@ from sensorium_tpu_torch.data.inputs import StackInputsProcessor, get_inputs_pro
 from sensorium_tpu_torch.data.mouse_data import get_mouse_data
 from sensorium_tpu_torch.engine.model import load_model
 from sensorium_tpu_torch.ops.conv import set_matmul_policy
-from sensorium_tpu_torch.utils.device import resolve_device
+from sensorium_tpu_torch.parallel import mesh as mesh_lib
+from sensorium_tpu_torch.utils.device import fetch_to_host, resolve_device
 
 
 def get_blend_weights(name: str, size: int) -> np.ndarray:
@@ -96,6 +103,12 @@ class Predictor:
     reference by ``cli/import_torch``) onto ``device``; ``from_module``
     takes a module and the params dict instead. Raises if ``device`` is CUDA
     and there is no card.
+
+    ``mesh``: a mesh of this process's devices; the model is loaded onto the
+    first and copied to the others, and ``device`` is not read. A
+    ``chunk_size`` that does not divide over it raises, and so does a mesh
+    over several processes (run one ``Predictor`` a host and spread the
+    trials with ``trial_shard`` instead).
     """
 
     def __init__(
@@ -104,9 +117,20 @@ class Predictor:
         blend_weights: str = "ones",
         chunk_size: int = 32,
         device: str | torch.device = "cuda",
+        mesh: mesh_lib.Mesh | None = None,
     ):
+        if mesh is not None:
+            if mesh.processes > 1:
+                raise ValueError("mesh-sharded prediction spans a single process; run one Predictor per host "
+                                 "instead of one mesh across hosts")
+            if chunk_size % mesh_lib.data_extent(mesh):
+                raise ValueError(f"chunk_size {chunk_size} must be a multiple of the mesh batch-sharding ways "
+                                 f"({mesh_lib.data_extent(mesh)})")
+            device = mesh.device
         model = load_model(model_path, device=device)
         self._setup(model.state.eval_model, model.params, blend_weights, chunk_size, model.device)
+        if mesh is not None:
+            self.replicas += [(copy.deepcopy(self.model).to(d).eval(), torch.device(d)) for d in mesh.devices[1:]]
 
     @classmethod
     def from_module(
@@ -142,6 +166,7 @@ class Predictor:
         if self.device.type == "cuda":
             set_matmul_policy()
         self.model = nn_module.to(self.device).eval()
+        self.replicas = [(self.model, self.device)]  # (module, device): the first is self.model
         self.inputs_processor = get_inputs_processor(*argus_params["inputs_processor"])
         self.indexes_generator = WindowIndexer(
             frame_stack["size"], frame_stack["step"], frame_stack["position"]
@@ -210,13 +235,15 @@ class Predictor:
                 *staged.trial_args, height, width, self.inputs_processor.pad_fill_value
             )
         blend_acc = torch.zeros(staged.length, dtype=torch.float32, device=self.device)
+        replica_inputs = [trial_inputs.to(device) for _, device in self.replicas]  # once a trial
         for start in range(0, staged.windows.shape[0], self.chunk_size):
             windows = staged.windows[start : start + self.chunk_size]  # (C, S)
-            count, size = windows.shape
+            count = windows.shape[0]
             flat = windows.reshape(-1)
-            batch = trial_inputs.index_select(1, flat)  # (5, C*S, H, W)
-            batch = batch.view(batch.shape[0], count, size, *batch.shape[2:]).transpose(0, 1)
-            pred = self.model(batch, mouse_index=mouse_index).float()  # (C, N, S)
+            preds = [_window_forward(model, inputs, part.to(device), mouse_index).to(self.device)
+                     for (model, device), inputs, part in zip(self.replicas, replica_inputs,
+                                                             windows.tensor_split(len(self.replicas))) if len(part)]
+            pred = preds[0] if len(preds) == 1 else torch.cat(preds)  # (C, N, S)
             resp_acc.index_add_(1, flat, pred.transpose(0, 1).reshape(num_neurons, -1))
             blend_acc.index_add_(0, flat, self.blend_weights.repeat(count))
         return resp_acc / blend_acc.clamp(min=1.0)
@@ -246,6 +273,16 @@ class Predictor:
         return self.predict_trial(*_load_trial_arrays(trial_data), mouse_index)
 
 
+def _window_forward(model: torch.nn.Module, trial_inputs: torch.Tensor, windows: torch.Tensor,
+                    mouse_index: int) -> torch.Tensor:
+    """The single-mouse forward of the (C, S) windows of a (5, T, H, W)
+    trial stack -> (C, N, S) fp32."""
+    count, size = windows.shape
+    batch = trial_inputs.index_select(1, windows.reshape(-1))  # (5, C*S, H, W)
+    batch = batch.view(batch.shape[0], count, size, *batch.shape[2:]).transpose(0, 1)
+    return model(batch, mouse_index=mouse_index).float()
+
+
 def _load_trial_arrays(trial_data: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(video, behavior, pupil_center) of a catalog entry, cut to its length."""
     length = trial_data["length"]
@@ -263,16 +300,8 @@ class _PendingSave(NamedTuple):
 
 
 def _start_fetch(path: Path, blend: torch.Tensor) -> _PendingSave:
-    """Start the copy of ``blend`` to the host. On the card it goes into
-    pinned memory without waiting, with an event recorded behind it: a
-    blocking copy would also wait for every launch queued after it."""
-    if blend.device.type != "cuda":
-        return _PendingSave(path, blend, None)
-    host = torch.empty(blend.shape, dtype=blend.dtype, pin_memory=True)
-    host.copy_(blend, non_blocking=True)
-    copied = torch.cuda.Event()
-    copied.record()
-    return _PendingSave(path, host, copied)
+    """Start the copy of ``blend`` to the host (``fetch_to_host``)."""
+    return _PendingSave(path, *fetch_to_host(blend))
 
 
 def _finish_fetch(pending: _PendingSave) -> None:

@@ -402,8 +402,7 @@ class DwiseNeuro(nn.Module):
             # Each readout draws its own mask on the shared cortex output
             # (every reference Readout holds its own Dropout1d).
             m = self.num_mice
-            xm = x.expand(m, *x.shape).reshape(m * x.shape[0], *x.shape[1:])
-            xm = channel_dropout(xm, self.drop_rate, generator)
+            xm = channel_dropout(x.expand(m, *x.shape), self.drop_rate, generator, sample_dims=2)
             xm = xm.reshape(m, *x.shape[:-1], self.groups, x.shape[-1] // self.groups)
             logits = einsum_f32("mbtgc,mgcp->mbtgp", xm, kernel)
         else:

@@ -474,8 +474,11 @@ def _entry(name: str, dtype: torch.dtype):
 
 
 def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = _entry(name, dtype)(*args, stream)
+    # A launch goes to the current device's stream: make it the operands' card
+    # (a Predictor over a mesh runs replicas on every card from one thread).
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = _entry(name, dtype)(*args, stream)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {status}")
     LAUNCHES[name] += 1

@@ -18,12 +18,29 @@ saves the input in its own dtype and the per-channel fp32 ``mean`` and
 every activation (7.5 GB for block 0's ``pw_bn`` at batch 32). Its backward is
 the standard biased-BN backward, which is exact here: with ``c`` constant,
 d var / dx = 2 (x - E[x]) / n.
+
+Under a data-parallel mesh (``parallel.mesh.active``) the statistics are the
+global batch's, as GSPMD makes them in JAX. Every process holds as many
+rows (the mesh's sharding sees to it), so the global ``[E[x], E[(x-c)²]]``
+per channel is the mean of the processes': the forward reduces its local
+pair in one ``all_reduce`` and divides by the process count (``c``, the
+running mean, is the same on every process; the count is known, so no
+``n`` travels), then takes the biased variance as above; the running
+update and dx use the global ``n``. At one process this is the
+single-process arithmetic bit for bit. The backward reduces ``[Σg,
+Σg·x̂]`` in one ``all_reduce`` for dx, and returns the *local* ``dscale``
+and ``dbias``: the train step's gradient reduction sums them, as torch's
+``SyncBatchNorm`` leaves them. A rematerialized forward (``recompute``)
+reduces again; its local moments are those of the first forward, so its
+statistics are too. Without a mesh there is no collective.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from sensorium_tpu_torch.parallel import mesh as mesh_lib
 
 MOMENTUM = 0.1  # torch's: running = (1 - m) * running + m * batch
 
@@ -34,17 +51,25 @@ def _stats_dtype(dtype: torch.dtype) -> torch.dtype:
 
 class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, shift, eps, dtype):
+    def forward(ctx, x, scale, bias, shift, eps, dtype, mesh):
         dims = tuple(range(x.ndim - 1))
         sd = _stats_dtype(x.dtype)
+        n = x.numel() // x.shape[-1]
         mean = x.mean(dim=dims, dtype=sd)
         centred = x.to(sd) - shift  # one temporary, squared in place
-        var = centred.square_().mean(dim=dims) - (mean - shift).square()
+        centred_sq = centred.square_().mean(dim=dims)
         del centred
+        if mesh is not None:
+            extent = mesh_lib.data_extent(mesh)
+            moments = mesh_lib.all_reduce(mesh, torch.cat([mean, centred_sq])) / extent
+            mean, centred_sq = moments.chunk(2)
+            n *= extent
+        var = centred_sq - (mean - shift).square()
         inv_std = torch.rsqrt(var + eps)
         inv = inv_std * scale
         y = torch.addcmul(bias - mean * inv, x.to(sd), inv).to(dtype)
         ctx.save_for_backward(x, mean, inv_std, scale)
+        ctx.mesh, ctx.count = mesh, n
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -59,20 +84,24 @@ class _BatchNormTrain(torch.autograd.Function):
         dscale = (g * xhat).sum(dim=dims)
         dx = None
         if ctx.needs_input_grad[0]:
-            n = x.numel() // x.shape[-1]
-            dx = ((g - dbias / n) - xhat * (dscale / n)) * (inv_std * scale)
+            n, total_bias, total_scale = ctx.count, dbias, dscale
+            if ctx.mesh is not None:
+                totals = mesh_lib.all_reduce(ctx.mesh, torch.cat([dbias, dscale]))
+                total_bias, total_scale = totals.chunk(2)
+            dx = ((g - total_bias / n) - xhat * (total_scale / n)) * (inv_std * scale)
             dx = dx.to(x.dtype)
-        return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None, None, None
+        return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None, None, None, None
 
 
-def batch_norm_train(x, scale, bias, shift, eps: float, dtype: torch.dtype):
+def batch_norm_train(x, scale, bias, shift, eps: float, dtype: torch.dtype, mesh=None):
     """Training-mode BN: ``(y, batch mean, biased batch variance)``.
 
     ``shift`` is the running mean, used only to condition the variance; the
     statistics come back in fp32 (float64 for float64 inputs) without a
-    gradient.
+    gradient. With a ``mesh`` (``parallel.mesh.Mesh``) they are the global
+    batch's.
     """
-    return _BatchNormTrain.apply(x, scale, bias, shift, eps, dtype)
+    return _BatchNormTrain.apply(x, scale, bias, shift, eps, dtype, mesh)
 
 
 class BatchNorm(nn.Module):
@@ -102,9 +131,10 @@ class BatchNorm(nn.Module):
             shift = self._shift
         else:
             shift = self._shift = self.mean.clone()
-        y, mean, var = batch_norm_train(x, self.scale, self.bias, shift, self.eps, self.dtype)
+        mesh = mesh_lib.current()
+        y, mean, var = batch_norm_train(x, self.scale, self.bias, shift, self.eps, self.dtype, mesh)
         if not recompute:
-            n = x.numel() // x.shape[-1]
+            n = x.numel() // x.shape[-1] * (1 if mesh is None else mesh_lib.data_extent(mesh))
             with torch.no_grad():
                 self.mean.copy_((1 - MOMENTUM) * self.mean + MOMENTUM * mean)
                 self.var.copy_((1 - MOMENTUM) * self.var + MOMENTUM * (var * (n / max(n - 1, 1))))

@@ -1,0 +1,287 @@
+"""The data-parallel mesh of the port.
+
+Counterpart of the data axes of ``sensorium_tpu/parallel/mesh.py``. JAX
+shards one program's global batch over a device mesh and lets GSPMD turn
+every global-batch sum into a collective. Here each card is one process of
+a ``torch.distributed`` group, and the mesh says which rows of each global
+batch a process holds and how its sums meet the others':
+
+* ``Mesh``: the axis sizes (``data``, or ``replica`` = hosts and ``data`` =
+  cards a host), this process's devices, its index among the mesh's
+  processes, and the process group;
+* ``create_mesh`` / ``create_hybrid_mesh`` raise the JAX package's
+  factoring errors; a ``model`` axis above 1 (tensor parallelism) raises
+  ``NotImplementedError``;
+* ``shard_rows`` / ``shard_batch``: a process's rows of a global batch, its
+  slice of each of the ``iter_size`` microbatches, so that microbatch i
+  holds the same rows as without a mesh;
+* ``replicate_tree`` (a broadcast from the first process), ``all_reduce``
+  and ``reduce_gradients`` (the gradients' sum in flat buckets). The port's
+  only collectives are ``all_reduce`` and ``broadcast``, which gloo also
+  runs on CUDA tensors;
+* ``active(mesh)``: while it is entered, training-mode BN takes its
+  statistics over the mesh (``ops/norm.py``), and dropout and drop-path
+  masks are drawn for the global batch and cut to this process's rows
+  (``ops/stochastic.py``).
+
+A mesh over one process's own devices (``create_mesh(devices=[...])``, or
+``create_mesh()`` with no process group: every visible card) has no process
+group and runs no collective; ``Predictor`` spreads its chunks over it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+TENSOR_PARALLEL = "tensor parallelism (a 'model' mesh axis) is not ported yet (ROADMAP.md §A.4b)"
+BUCKET_BYTES = 64 * 2**20  # gradients summed per all_reduce
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+@dataclass(frozen=True, eq=False)
+class Mesh:
+    """``shape``: axis name -> size. ``devices``: this process's devices in
+    mesh order (one a process over a process group). ``index``: this
+    process's place among the mesh's ``processes``. ``group``: the process
+    group, None for a mesh of one process's devices."""
+
+    shape: dict
+    devices: tuple
+    index: int
+    processes: int
+    group: object = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def distributed(self) -> bool:
+        return self.group is not None
+
+
+def _process_devices(devices) -> tuple:
+    """This process's one device in a process group: the card NCCL uses, or the CPU under gloo."""
+    if devices is None:
+        if dist.get_backend() == "nccl":
+            return (torch.device("cuda", torch.cuda.current_device()),)
+        return (torch.device("cpu"),)
+    devices = tuple(torch.device(d) for d in devices)
+    if len(devices) != 1:
+        raise ValueError(f"a mesh over a process group holds one device a process, got {devices}")
+    return devices
+
+
+def _local_devices(devices) -> tuple:
+    if devices is not None:
+        return tuple(torch.device(d) for d in devices)
+    count = torch.cuda.device_count()
+    if count == 0:
+        raise RuntimeError("no CUDA card is visible; pass devices=[...] for a mesh of CPU devices")
+    return tuple(torch.device("cuda", i) for i in range(count))
+
+
+def _devices_and_count(devices) -> tuple[tuple, int]:
+    if dist.is_initialized():
+        return _process_devices(devices), dist.get_world_size()
+    devices = _local_devices(devices)
+    return devices, len(devices)
+
+
+def _build(shape: dict, count: int, devices: tuple) -> Mesh:
+    extent = math.prod(shape.values())
+    if not dist.is_initialized():
+        return Mesh(dict(shape), devices[:extent], 0, 1)
+    if extent != count:
+        raise ValueError(f"a mesh over a process group spans all its {count} processes, not {extent}")
+    return Mesh(dict(shape), devices, dist.get_rank(), extent, dist.group.WORLD)
+
+
+def create_mesh(num_data: int | None = None, num_model: int = 1, devices=None) -> Mesh:
+    """A ``data`` mesh.
+
+    With ``torch.distributed`` initialized it spans the group's processes,
+    one device each (``devices``: this process's). Otherwise it spans
+    ``devices`` of this process (by default every visible card).
+
+    As in JAX, an auto ``num_data`` that leaves devices out, or a mesh larger
+    than the devices, raises ``ValueError``; an explicit smaller
+    ``num_data`` is a deliberate subset of one process's devices.
+    """
+    devices, count = _devices_and_count(devices)
+    auto_data = num_data is None
+    if auto_data:
+        num_data = count // num_model
+    if num_data * num_model > count or (auto_data and num_data * num_model != count):
+        raise ValueError(
+            f"mesh {num_data}x{num_model} (data x model) does not fit the {count} available devices; "
+            "pick factors of the slice"
+        )
+    if num_model != 1:
+        raise NotImplementedError(TENSOR_PARALLEL)
+    return _build({"data": num_data}, count, devices)
+
+
+def create_hybrid_mesh(num_slices: int | None = None, num_data: int | None = None, num_model: int = 1,
+                       devices=None) -> Mesh:
+    """A ``(replica, data)`` mesh: ``replica`` over hosts, ``data`` over a
+    host's cards. Processes are numbered host by host (global rank = host x
+    cards a host + local rank), so ``data`` never leaves a host. With
+    ``num_slices`` None the host count is the world size over
+    ``LOCAL_WORLD_SIZE`` (the cards a host, which torchrun and the train
+    CLI's launcher set). A mesh that does not cover every device raises."""
+    devices, count = _devices_and_count(devices)
+    if num_slices is None:
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", count)) if dist.is_initialized() else count
+        num_slices = max(1, count // per_host)
+    if count % (num_slices * num_model):
+        raise ValueError(
+            f"{count} devices do not factor into slices={num_slices} x model={num_model} (per-slice device "
+            f"count {count / num_slices:g} must be a multiple of num_model)"
+        )
+    if num_data is None:
+        num_data = count // (num_slices * num_model)
+    covered = num_slices * num_data * num_model
+    if covered != count:
+        raise ValueError(f"mesh {(num_slices, num_data, num_model)} covers {covered} devices but {count} are present")
+    if num_model != 1:
+        raise NotImplementedError(TENSOR_PARALLEL)
+    return _build({"replica": num_slices, "data": num_data}, count, devices)
+
+
+def data_axes(mesh: Mesh) -> tuple[str, ...]:
+    """The mesh axes the batch shards over."""
+    return tuple(axis for axis in ("replica", "data") if axis in mesh.shape)
+
+
+def data_extent(mesh: Mesh) -> int:
+    """The number of batch shards: the product of the data-like axes."""
+    return math.prod(mesh.shape[axis] for axis in data_axes(mesh))
+
+
+def shard_rows(batch: int, index: int, extent: int, chunks: int = 1, pad: bool = False) -> np.ndarray:
+    """The rows of a global batch of ``batch`` rows that shard ``index`` of
+    ``extent`` holds: its contiguous slice of each of ``chunks`` equal
+    microbatches. With ``pad`` (evaluation), the batch is first rounded up to
+    a multiple of ``extent``, and rows >= ``batch`` are padding."""
+    if pad:
+        batch = -(-batch // extent) * extent
+    if batch % chunks:
+        raise ValueError(f"batch_size {batch} is not divisible by iter_size {chunks}")
+    chunk = batch // chunks
+    if chunk % extent:
+        raise ValueError(
+            f"a microbatch of {chunk} rows (batch_size {batch} / iter_size {chunks}) does not divide over the "
+            f"data extent {extent}; pick batch_size % (iter_size * {extent}) == 0"
+        )
+    per = chunk // extent
+    return np.concatenate([np.arange(i * chunk + index * per, i * chunk + (index + 1) * per) for i in range(chunks)])
+
+
+def shard_batch(mesh: Mesh | None, *arrays, chunks: int = 1, pad: bool = False) -> tuple:
+    """This process's rows (``shard_rows``) of each global-batch numpy
+    array; 0-d values pass as they are, and padding rows are zeros. Without
+    a mesh the arrays come back unchanged."""
+    if mesh is None:
+        return arrays
+    batch = next(len(a) for a in arrays if np.ndim(a) > 0)
+    per_process = len(mesh.devices)
+    rows = np.concatenate([shard_rows(batch, mesh.index * per_process + k, data_extent(mesh), chunks, pad)
+                           for k in range(per_process)])
+    source, padding = np.minimum(rows, batch - 1), rows >= batch
+
+    def take(a):
+        if np.ndim(a) == 0:
+            return a
+        out = np.asarray(a)[source]
+        out[padding] = 0
+        return out
+
+    return tuple(take(a) for a in arrays)
+
+
+def replicate_tree(mesh: Mesh | None, tree):
+    """Broadcast ``tree`` (a module's parameters and buffers, or a tensor)
+    from the mesh's first process, in place, and return it. Nothing to do
+    without a process group."""
+    if mesh is None or not mesh.distributed:
+        return tree
+    tensors = [*tree.parameters(), *tree.buffers()] if isinstance(tree, torch.nn.Module) else [tree]
+    for tensor in tensors:
+        dist.broadcast(tensor.detach(), src=0, group=mesh.group)
+    return tree
+
+
+def all_reduce(mesh: Mesh | None, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """``op`` ("sum", "max" or "min") of ``tensor`` over the mesh's
+    processes, in place; returns it. Nothing to do without a process group."""
+    if mesh is not None and mesh.distributed:
+        dist.all_reduce(tensor, op=_OPS[op], group=mesh.group)
+    return tensor
+
+
+def reduce_gradients(mesh: Mesh | None, parameters, bucket_bytes: int = BUCKET_BYTES) -> None:
+    """Sum every parameter's ``.grad`` over the mesh: consecutive gradients
+    of one dtype are flattened into buckets of at most ``bucket_bytes``, one
+    ``all_reduce`` each; a gradient larger than that is reduced where it lies."""
+    if mesh is None or not mesh.distributed:
+        return
+    grads = [p.grad for p in parameters if p.grad is not None]
+
+    def flush(bucket):
+        if len(bucket) == 1 and bucket[0].is_contiguous():
+            dist.all_reduce(bucket[0], group=mesh.group)
+            return
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=mesh.group)
+        offset = 0
+        for g in bucket:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+    bucket, size = [], 0
+    for g in grads:
+        nbytes = g.numel() * g.element_size()
+        if bucket and (size + nbytes > bucket_bytes or g.dtype != bucket[0].dtype):
+            flush(bucket)
+            bucket, size = [], 0
+        bucket.append(g)
+        size += nbytes
+    if bucket:
+        flush(bucket)
+
+
+_ACTIVE: Mesh | None = None
+
+
+@contextlib.contextmanager
+def active(mesh: Mesh | None):
+    """Make ``mesh`` the one training-mode BN and the dropout masks see (a
+    module global, not a thread-local: the backward pass may run on
+    autograd's device thread). None leaves them single-process."""
+    global _ACTIVE
+    previous, _ACTIVE = _ACTIVE, mesh
+    try:
+        yield
+    finally:
+        _ACTIVE = previous
+
+
+def current() -> Mesh | None:
+    """The mesh ``active`` entered, or None."""
+    return _ACTIVE
+
+
+def row_shard() -> tuple[int, int] | None:
+    """``(shard index, data extent)`` of this process under the active mesh, or None."""
+    mesh = _ACTIVE
+    if mesh is None:
+        return None
+    return mesh.index * len(mesh.devices), data_extent(mesh)

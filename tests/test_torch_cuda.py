@@ -177,6 +177,29 @@ def test_predictor_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_predictor_over_every_card_matches_one_card(cuda, tmp_path):
+    """``Predictor(mesh=create_mesh())``: a replica on each visible card, the
+    kernels launched on each replica's card, the chunk's windows split over
+    them; the one-card trial within fp32 rounding."""
+    from sensorium_tpu_torch.parallel import mesh as mesh_lib
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards or more")
+    model = MouseModel({**ARGUS, "nn_module": ("dwiseneuro", TINY)}, device="cuda")
+    model.build_state(seed=0, learning_rate=0.0)
+    model.save(tmp_path / "model-000-0.100000.ckpt")
+    rng = np.random.default_rng(21)
+    trial = (rng.uniform(0, 255, (12, 14, 40)).astype(np.float32), rng.uniform(0, 5, (2, 40)).astype(np.float32),
+             rng.uniform(0, 50, (2, 40)).astype(np.float32))
+    mesh = mesh_lib.create_mesh()
+    chunk = 4 * mesh_lib.data_extent(mesh)
+    one = Predictor(tmp_path / "model-000-0.100000.ckpt", chunk_size=chunk, device="cuda")
+    every = Predictor(tmp_path / "model-000-0.100000.ckpt", chunk_size=chunk, mesh=mesh)
+    assert [device.index for _, device in every.replicas] == list(range(torch.cuda.device_count()))
+    np.testing.assert_allclose(every.predict_trial(*trial, 1), one.predict_trial(*trial, 1), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("k", [3, 5])
@@ -771,3 +794,60 @@ def test_background_save_on_the_card_is_bitwise_a_sync_save(cuda, tmp_path):
     resumed.load_train_state(tmp_path / "async_state.ckpt")
     assert next(restored.state.model.parameters()).device.type == "cuda"
     assert float(resumed.train_step(batch)) > 0
+
+
+@pytest.fixture
+def card_group_of_one(cuda):
+    """A gloo group of one process over the card: the mesh path runs every
+    collective on CUDA tensors, and a sum over one process changes nothing."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sensorium_tpu_torch.parallel import mesh as mesh_lib
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        yield mesh_lib.create_mesh(devices=["cuda"])
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_function_over_a_group_of_one_is_bitwise_the_function_without_a_mesh(card_group_of_one, dtype):
+    from sensorium_tpu_torch.ops.norm import batch_norm_train
+
+    rng = np.random.default_rng(19)
+    x = (rand(rng, 4, 3, 6, 5, 24) * 7 + 40).to("cuda", dtype)
+    scale, bias = rand(rng, 24).cuda(), rand(rng, 24).cuda()
+    shift, dy = (rand(rng, 24) * 5 + 38).cuda(), rand(rng, *x.shape).to("cuda", dtype)
+    results = []
+    for mesh in (None, card_group_of_one):
+        leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+        y, mean, var = batch_norm_train(*leaves, shift, 1e-5, dtype, mesh)
+        y.backward(dy)
+        results.append([y, mean, var] + [t.grad for t in leaves])
+    for without, over in zip(*results):
+        assert torch.equal(without, over)
+
+
+@pytest.mark.cuda
+def test_train_step_over_a_group_of_one_is_bitwise_the_single_card_step(card_group_of_one):
+    params = {**ARGUS, "nn_module": ("dwiseneuro", {**TINY, "drop_rate": 0.2, "drop_path_rate": 0.1})}
+    batch = tiny_batch(np.random.default_rng(20))
+    models = []
+    for mesh in (None, card_group_of_one):
+        model = MouseModel(params, device="cuda", mesh=mesh)
+        model.set_ema(0.9)
+        model.build_state(seed=0, learning_rate=1e-3)
+        losses = [float(model.train_step(batch)) for _ in range(2)]
+        models.append((losses, model.state.ema_model.state_dict(), model.state.model.state_dict()))
+    (losses, ema, live), (mesh_losses, mesh_ema, mesh_live) = models
+    assert losses == mesh_losses
+    for name in live:
+        assert torch.equal(live[name], mesh_live[name]), name
+        assert torch.equal(ema[name], mesh_ema[name]), name

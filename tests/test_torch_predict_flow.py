@@ -274,6 +274,10 @@ def test_cli_ensemble_end_to_end(folds_predicted, capsys):
 
 
 def test_cli_predict_refuses_what_waits_for_multi_gpu():
-    for flag in ("--mesh", "--multihost=auto"):
+    """``--mesh`` and ``--multihost`` are ported; what the JAX CLI refuses
+    with them is refused: ``--mesh`` with ``--device`` or ``--multihost``."""
+    for flags in (["--mesh", "--device", "cpu"], ["--mesh", "--multihost=auto"]):
         with pytest.raises(SystemExit):
-            cli_predict.parse_arguments(["-e", EXPERIMENT, "-s", SPLIT, flag])
+            cli_predict.parse_arguments(["-e", EXPERIMENT, "-s", SPLIT, *flags])
+    args = cli_predict.parse_arguments(["-e", EXPERIMENT, "-s", SPLIT, "--mesh"])
+    assert args.mesh and args.device is None and args.multihost is None

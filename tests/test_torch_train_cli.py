@@ -220,18 +220,47 @@ def test_distillation_without_a_teacher_checkpoint_raises(env):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "data,model"],
-    ["--mesh", "replica,data"],
-    ["--fold-procs", "2"],
-    ["--fold-procs", "auto"],
-    ["--pin-chips"],
-    ["--multihost", "auto"],
+    ["--mesh", "replica,data,model"],
     ["--sharded-checkpoint"],
 ])
 def test_multi_device_flags_are_refused(flags, capsys):
+    """Tensor parallelism and the sharded train state are not ported."""
     with pytest.raises(SystemExit) as exit_info:
         train.parse_arguments(["-e", EXPERIMENT, *flags])
     assert exit_info.value.code == 2
-    assert "ROADMAP.md A.4" in capsys.readouterr().err
+    assert "ROADMAP.md §A.4b" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags, key, value", [
+    (["--mesh", "replica,data"], "mesh", "replica,data"),
+    (["--fold-procs", "2"], "fold_procs", "2"),
+    (["--fold-procs", "auto"], "fold_procs", "auto"),
+    (["--pin-chips"], "pin_chips", True),
+    (["--multihost", "auto"], "multihost", "auto"),
+    (["--multihost", "127.0.0.1:1234,2,1"], "multihost", "127.0.0.1:1234,2,1"),
+])
+def test_data_parallel_flags_are_accepted(flags, key, value):
+    assert getattr(train.parse_arguments(["-e", EXPERIMENT, *flags]), key) == value
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--mesh", "model"], "expected 'data' or 'replica,data'"),
+    (["--fold-procs", "two"], "expected a count or 'auto'"),
+])
+def test_malformed_data_parallel_flags_are_refused(flags, message, capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        train.parse_arguments(["-e", EXPERIMENT, *flags])
+    assert exit_info.value.code == 2
+    assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--multihost", "127.0.0.1:1234,2,0", "--fold-procs", "2"], "mutually exclusive"),
+    (["--multihost", "127.0.0.1:1234,2,0", "--no-mesh"], "requires a device mesh"),
+])
+def test_multihost_exclusions(env, flags, message):
+    with pytest.raises(SystemExit, match=message):
+        train.main(["-e", EXPERIMENT, *flags])
 
 
 def test_single_device_flags_are_accepted():
