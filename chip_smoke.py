@@ -164,7 +164,23 @@ Phases, each of which passes or makes the script exit non-zero:
    ``cli.train`` with the default ``--mesh data`` over every card, its logs
    held to 16b's tolerances, and ``cli.predict -s folds --mesh`` on that
    fold against one card within the serving tolerance; with one card it
-   prints that 16c did not run.
+   prints that 16c did not run;
+17. serving export (``infer/export.py``): phase 13's checkpoint is exported
+   as the all-mice window forward (symbolic batch) and as mouse 0's trial
+   program (chunk 32, bucket 64, 36x64 frames, symbolic length); each
+   prints its export seconds (checkpoint read, trace, write), ``.pt2``
+   bytes and load seconds. The trial artifact serves phase 4's three
+   300-frame requests (padded to 320 frames) beside the live ``Predictor``,
+   windows/s printed for both. bf16: the frames that see only chunks of the
+   same 32 windows in both must agree within 1e-5 of the largest output
+   (only the blend's fp32 order differs); the last frames, which also see
+   the live Predictor's short last chunk, within one bf16 rounding (2**-8),
+   beside the live Predictor's own difference at another chunk size. The
+   launch counters must show 9 + 9 per chunk forward that torch's eager
+   ``scan`` runs (torch 2.11 runs the first chunk twice). Then an fp32
+   window artifact of mouse 0, traced on the card, must give the live
+   model's numbers bitwise on phase 5's two windows, and moved to the CPU
+   the card's within phase 5's bound.
 
 After the counted serving run, one more request runs under
 ``torch.profiler`` and the device time is summed by kernel. The script then
@@ -174,10 +190,10 @@ prints the ``{"kernels": [...]}`` line, the nvidia-smi line again, and last
 ``chip_smoke_train_trace.json``) and the fit's logs go to ``--out``, by
 default ``build/chip_smoke/`` in the checkout; the fit's dataset is written
 there too and removed after phase 15. Checkpoints, train states, the
-prediction tree and the experiments of phases 12-15 go to a temporary
-directory outside ``--out``, removed at the end. Each phase 12-15 counts the
-kernel launches of its own runs, from 0, and checks them against their
-forwards and steps.
+prediction tree, the experiments and the artifacts of phases 12-17 go to a
+temporary directory outside ``--out``, removed at the end. Each phase 12-17
+counts the kernel launches of its own runs, from 0, and checks them against
+their forwards and steps.
 """
 
 from __future__ import annotations
@@ -306,6 +322,18 @@ MESH_STATS_RTOL, MESH_STATS_ATOL = 1e-4, 1e-5
 MESH_BF16_FACTOR = 2.0
 MESH_LOG_RTOL, MESH_CORR_ATOL = 1e-3, 1e-3  # 16b and 16c logs against phase 15's fold
 MESH_PREDICT = "mesh_predict"  # 16c: 7 fold directories that link the mesh-trained fold's checkpoint
+# Phase 17: the trial artifact's length bucket, and the bound, relative to
+# the largest live output, of its bf16 results against its own program run
+# eagerly on the live model (every frame) and against the live Predictor on
+# the frames that see only chunks of the same 32 windows in both: where the
+# forwards are the same, only the fp32 blend's order may differ. The other
+# frames also see the live Predictor's short last chunk, whose bf16 products
+# round otherwise; their difference is printed beside the live Predictor's
+# own at chunk EXPORT_OTHER_CHUNK.
+EXPORT_BUCKET = 64
+EXPORT_REL_TOL = 1e-5
+EXPORT_OTHER_CHUNK = 30
+EXPORT_CHECKPOINT = "model-000-0.000000.ckpt"  # phase 13's EMA weights after one step, in the work directory
 # Runs ``python -m MODULE ARGS`` and writes the kernel launches to PATH when the process exits.
 COUNTED_MODULE = (
     "import atexit, json, runpy, sys\n"
@@ -1479,7 +1507,7 @@ def checkpoints(record: dict, work: Path) -> dict:
     a = flagship(SEED)
     a.train_step(batch)
 
-    model_ckpt = work / "model-000-0.000000.ckpt"
+    model_ckpt = work / EXPORT_CHECKPOINT
     result["model_save_sync_seconds"] = timed(lambda: a.save(model_ckpt))
     result["model_gb"] = gb(model_ckpt)
     loaded = {}
@@ -1494,8 +1522,7 @@ def checkpoints(record: dict, work: Path) -> dict:
     result["model_background_flush_seconds"] = timed(ckpt.flush_pending_saves)
     if background.read_bytes() != model_ckpt.read_bytes():
         fail("checkpoints: the background save differs from the sync save of the same weights")
-    background.unlink()
-    model_ckpt.unlink()
+    background.unlink()  # model_ckpt stays for phase 17
 
     state_ckpt, state_background = work / "train_state.ckpt", work / "train_state_background.ckpt"
     result["state_save_sync_seconds"] = timed(lambda: a.save_train_state(state_ckpt, extra={"epoch": 0}))
@@ -2381,6 +2408,177 @@ def mesh_cards_cli(record: dict, fit_root: Path, work: Path) -> None:
                             "predict_max_rel_err": worst_rel}
 
 
+def scan_body_calls(length: int) -> int:
+    """How many times this torch's eager ``scan`` runs its body over
+    ``length`` elements: ``length``, or one more where it runs the body on
+    the first element once more to infer the output shapes (torch 2.11)."""
+    import torch
+
+    calls = []
+
+    def body(carry, x):
+        calls.append(None)
+        return [carry + x, x.clone()]
+
+    torch.ops.higher_order.scan(body, [torch.zeros(())], [torch.zeros(length)], ())
+    return len(calls)
+
+
+def serving_export(record: dict, checkpoint: Path, work: Path) -> dict:
+    """Phase 17: ``infer/export.py`` on the card. The window forward (all
+    mice) and the trial program (mouse 0) of phase 13's checkpoint are
+    exported and loaded; the trial artifact serves phase 4's requests beside
+    the live ``Predictor``; a card-traced fp32 window artifact runs on the
+    card beside the live model and on the CPU."""
+    import numpy as np
+    import torch
+
+    from sensorium_tpu_torch.data.indexes import WindowIndexer
+    from sensorium_tpu_torch.engine.model import load_model
+    from sensorium_tpu_torch.infer.export import export_model_file, load_exported
+    from sensorium_tpu_torch.infer.predictor import Predictor, assemble_trial_stack, chunk_updates
+    from sensorium_tpu_torch.ops import dw_kernels
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - start
+
+    result: dict = {"card": nvidia_smi_line()}
+    artifacts = {}
+    for label, kwargs in (("window", {}),
+                          ("trial", {"mouse_index": 0, "trial": True, "src_hw": tuple(FIT_VIDEO),
+                                     "chunk_size": CHUNK, "length_bucket": EXPORT_BUCKET})):
+        path = work / f"{label}.pt2"
+        summary, export_s = timed(lambda: export_model_file(checkpoint, path, device="cuda", **kwargs))
+        artifacts[label], load_s = timed(lambda: load_exported(path, device="cuda"))
+        result[label] = {"export_seconds": export_s, "bytes": summary["bytes"], "load_seconds": load_s,
+                         "input_shapes": summary["input_shapes"], "output_shape": summary["output_shape"]}
+        print(f"export: {label} artifact {summary['input_shapes']} -> {summary['output_shape']}: exported in "
+              f"{export_s:.1f} s (checkpoint read, trace and write), {summary['bytes'] / 1e9:.3f} GB, loaded "
+              f"in {load_s:.1f} s", flush=True)
+    del artifacts["window"]
+
+    live = Predictor(checkpoint, chunk_size=CHUNK, length_bucket=EXPORT_BUCKET, device="cuda")
+    rng = np.random.default_rng(SEED)  # phase 4's requests
+    warm = make_trial(rng)
+    trials = [make_trial(rng) for _ in range(REQUESTS)]
+    padded = math.ceil(TRIAL_LENGTH / EXPORT_BUCKET) * EXPORT_BUCKET
+    pad = padded - TRIAL_LENGTH
+
+    def padded_args(video, behavior, pupil):
+        args = (np.pad(video.transpose(2, 0, 1), ((0, pad), (0, 0), (0, 0))),
+                np.pad(behavior, ((0, 0), (0, pad))), np.pad(pupil, ((0, 0), (0, pad))))
+        return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in args]
+
+    def through_artifact(video, behavior, pupil):
+        with torch.inference_mode():
+            out = artifacts["trial"](*padded_args(video, behavior, pupil),
+                                     torch.tensor(TRIAL_LENGTH, dtype=torch.int32, device="cuda"))
+        return out[:, :TRIAL_LENGTH].cpu().numpy()
+
+    gen = live.indexes_generator
+
+    @torch.inference_mode()
+    def replay(video, behavior, pupil):
+        """The trial program run eagerly on the live model: the same chunks
+        of 32 windows as the artifact's, the zero-weight rows included."""
+        stack = assemble_trial_stack(*padded_args(video, behavior, pupil), 64, 64, 0.0)
+        anchors = gen.behind + torch.arange(padded, device="cuda")
+        valid = (anchors < TRIAL_LENGTH - gen.ahead).float().view(-1, CHUNK)
+        offsets = torch.arange(-gen.behind, gen.ahead + 1, gen.step, device="cuda")
+        windows = (anchors[:, None] + offsets).clamp(0, padded - 1).view(-1, CHUNK, gen.size)
+        resp = torch.zeros((live.model.readout_outputs[0], padded), device="cuda")
+        blend = torch.zeros(padded, device="cuda")
+        for chunk_windows, chunk_valid in zip(windows, valid):
+            flat, r, b = chunk_updates(live.model, stack, chunk_windows, live.blend_weights, 0, chunk_valid)
+            resp.index_add_(1, flat, r)
+            blend.index_add_(0, flat, b)
+        return (resp / blend.clamp(min=1.0))[:, :TRIAL_LENGTH].cpu().numpy()
+
+    through_artifact(*warm)
+    live.predict_trial(*warm, mouse_index=0)
+    reset_launches()
+    got, artifact_s = timed(lambda: [through_artifact(*trial) for trial in trials])
+    launches = dict(dw_kernels.LAUNCHES)
+    expected, live_s = timed(lambda: [live.predict_trial(*trial, mouse_index=0) for trial in trials])
+    diff_replay = max(float(np.max(np.abs(g - replay(*trial)))) for g, trial in zip(got, trials))
+    windows = len(gen.valid_anchors(TRIAL_LENGTH))
+    # Frames [0, same) see only windows of chunks that the artifact and the
+    # live Predictor fill alike (32 valid anchors each); later frames also see
+    # the last chunk, 14 windows in the live Predictor and 32 (18 of zero
+    # weight) in the artifact, so its bf16 products may round otherwise.
+    same = windows // CHUNK * CHUNK
+    other = Predictor(checkpoint, chunk_size=EXPORT_OTHER_CHUNK, device="cuda")
+    spread = max(float(np.max(np.abs(other.predict_trial(*trial, mouse_index=0)[:, same:] - e[:, same:])))
+                 for trial, e in zip(trials, expected))
+    del other
+    scale = max(float(np.max(np.abs(e))) for e in expected)
+    diff_same = max(float(np.max(np.abs(g[:, :same] - e[:, :same]))) for g, e in zip(got, expected))
+    diff_rest = max(float(np.max(np.abs(g[:, same:] - e[:, same:]))) for g, e in zip(got, expected))
+    chunks = padded // CHUNK
+    body_calls = scan_body_calls(chunks)
+    result["serve"] = {
+        "requests": REQUESTS, "padded_length": padded, "chunks_per_request": chunks,
+        "scan_body_calls_per_request": body_calls, "max_abs_live": scale, "max_abs_diff_replay": diff_replay,
+        "max_abs_diff_same_chunks": diff_same, "max_abs_diff_other_frames": diff_rest,
+        "relative_same_chunks": diff_same / scale, "relative_other_frames": diff_rest / scale,
+        f"live_chunk_{EXPORT_OTHER_CHUNK}_max_abs_diff": spread,
+        "artifact_windows_per_second": REQUESTS * windows / artifact_s,
+        "live_windows_per_second": REQUESTS * windows / live_s, "launches": launches,
+    }
+    print(f"export: {REQUESTS} requests x {windows} windows through the trial artifact (padded to {padded} "
+          f"frames, {chunks} chunks each, the eager scan runs its body {body_calls} times) at "
+          f"{result['serve']['artifact_windows_per_second']:.1f} windows/s, the live Predictor at "
+          f"{result['serve']['live_windows_per_second']:.1f} windows/s; max |live| {scale:.4g}; against the "
+          f"program replayed eagerly on the live model max |diff| {diff_replay:.4g} (relative "
+          f"{diff_replay / scale:.3g}, tolerance {EXPORT_REL_TOL}); against the live Predictor max |diff| on frames "
+          f"0-{same - 1} {diff_same:.4g} (relative {diff_same / scale:.3g}, tolerance {EXPORT_REL_TOL}), on frames "
+          f"{same}-{TRIAL_LENGTH - 1} {diff_rest:.4g} (relative {diff_rest / scale:.3g}; the live Predictor at chunk "
+          f"{EXPORT_OTHER_CHUNK} against itself at chunk {CHUNK} there: {spread:.4g}, relative {spread / scale:.3g}); "
+          f"launches {launches}", flush=True)
+    for i, out in enumerate(got):
+        if out.shape != expected[i].shape or not np.all(np.isfinite(out)):
+            fail(f"export: request {i} gave {out.shape}, expected finite {expected[i].shape}")
+    if not (diff_replay <= EXPORT_REL_TOL * scale and diff_same <= EXPORT_REL_TOL * scale):
+        fail("export: the trial artifact differs from its program run eagerly or from the live Predictor")
+    check_forward_launches("export", launches, REQUESTS * body_calls)
+    del live, artifacts
+
+    # The fp32 window forward of mouse 0, traced on the card: on the card
+    # against the live model, and moved to the CPU.
+    fp32 = work / "model-fp32.ckpt"
+    fp32_checkpoint(checkpoint, fp32)
+    path = work / "window_fp32.pt2"
+    export_model_file(fp32, path, mouse_index=0, device="cuda")
+    video, behavior, pupil = make_trial(np.random.default_rng(SEED + 1))  # phase 5's two windows
+    stack = assemble_trial_stack(torch.from_numpy(np.ascontiguousarray(video.transpose(2, 0, 1))),
+                                 torch.from_numpy(behavior), torch.from_numpy(pupil), 64, 64, 0.0)
+    indexer = WindowIndexer(FRAMES, FLAGSHIP_ARGUS["frame_stack"]["step"])
+    windows = torch.from_numpy(indexer.windows([indexer.behind, TRIAL_LENGTH - 1]))
+    batch = stack.index_select(1, windows.reshape(-1)).view(5, 2, FRAMES, 64, 64).transpose(0, 1).contiguous()
+    with torch.inference_mode():
+        card = load_exported(path, device="cuda")(batch.cuda()).cpu()
+        live_card = load_model(fp32, device="cuda").predict(batch.numpy(), mouse_index=0).cpu()
+        cpu = load_exported(path, device="cpu")(batch)
+    diff_live, diff, cpu_max = float((card - live_card).abs().max()), float((card - cpu).abs().max()), \
+        float(cpu.abs().max())
+    result["fp32_window"] = {"max_abs_diff_live_card": diff_live, "max_abs_diff_cpu": diff, "max_abs_cpu": cpu_max,
+                             "relative_cpu": diff / cpu_max, "tolerance_cpu": CPU_REL_TOL}
+    print(f"export: the card-traced fp32 window artifact, 2 windows: against the live model on the card max |diff| "
+          f"{diff_live:.4g}; moved to the CPU, against the card max |diff| {diff:.4g}, max |cpu| {cpu_max:.4g}, "
+          f"relative {diff / cpu_max:.3g} (tolerance {CPU_REL_TOL})", flush=True)
+    if diff_live != 0.0:
+        fail(f"export: the fp32 window artifact differs from the live model on the card by {diff_live}")
+    if not (np.isfinite(diff) and diff <= CPU_REL_TOL * cpu_max):
+        fail(f"export: the artifact on the CPU differs from the card by {diff / cpu_max} relative")
+    record["serving_export"] = result
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _summed(rows: list[dict], name: str) -> dict:
     """Times and bound of ``name`` summed over the flagship blocks' calls (bf16 rows)."""
     flagship = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16" and r["blocks"]]
@@ -2408,7 +2606,7 @@ def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused
     """One entry per kernel: sums over the calls of one flagship training step
     (batch 32 x 16 frames, the shapes of a 32-window chunk forward), bf16.
     ``launches`` counts the timed train steps, ``launches_serve`` the counted
-    serving run, ``launches_<path>`` the runs of phases 12-15; the fused
+    serving run, ``launches_<path>`` the runs of phases 12-17; the fused
     kernel's launches are the dwbench run's."""
     replaces = {
         "dw_spatial_fwd": ("dw_conv.cu", "sensorium_tpu/ops/pallas_dw.py:115"),
@@ -2529,6 +2727,10 @@ def main() -> int:
         path_launches.update(mesh_library(record, work))
         mesh_cards_cli(record, fit_root, work)
         print(f"mesh: 16a and 16c took {time.perf_counter() - start:.1f} s", flush=True)
+        start = time.perf_counter()
+        path_launches["export"] = serving_export(record, work / EXPORT_CHECKPOINT, work)
+        record["serving_export"]["phase_seconds"] = time.perf_counter() - start
+        print(f"serving_export: phase took {record['serving_export']['phase_seconds']:.1f} s", flush=True)
     shutil.rmtree(fit_root)  # made anew from the seed by every run
 
     summary = kernel_summary(rows + backward_rows, train_launches, serve_launches, fused_rows, fused_launches,

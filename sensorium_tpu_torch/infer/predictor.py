@@ -23,6 +23,10 @@ by blending overlapping windows at every valid anchor (stride 1), with
   a split's trials: one disk read and one upload a trial for all of them,
   the mean on the device, and each trial's copy to the host overlapped
   with the next trial's forwards.
+* ``length_bucket`` is read only by the whole-trial export
+  (``infer/export.py`` ``export_trial``): its artifact takes any multiple of
+  the bucket. ``chunk_updates`` is the chunk step that the live path and the
+  export share.
 * ``Predictor(..., mesh=mesh)``, a mesh of this process's cards
   (``parallel.mesh.create_mesh()``): one eval replica a card; each chunk's
   windows are split over the replicas and their predictions gathered onto
@@ -116,6 +120,7 @@ class Predictor:
         model_path: Path | str,
         blend_weights: str = "ones",
         chunk_size: int = 32,
+        length_bucket: int = 64,
         device: str | torch.device = "cuda",
         mesh: mesh_lib.Mesh | None = None,
     ):
@@ -128,7 +133,7 @@ class Predictor:
                                  f"({mesh_lib.data_extent(mesh)})")
             device = mesh.device
         model = load_model(model_path, device=device)
-        self._setup(model.state.eval_model, model.params, blend_weights, chunk_size, model.device)
+        self._setup(model.state.eval_model, model.params, blend_weights, chunk_size, length_bucket, model.device)
         if mesh is not None:
             self.replicas += [(copy.deepcopy(self.model).to(d).eval(), torch.device(d)) for d in mesh.devices[1:]]
 
@@ -140,15 +145,16 @@ class Predictor:
         blend_weights: str = "ones",
         chunk_size: int = 32,
         device: str | torch.device = "cuda",
+        length_bucket: int = 64,
     ) -> "Predictor":
         """A predictor of ``nn_module`` (weights loaded), which is moved to
         ``device``; of ``argus_params`` it reads ``frame_stack``,
         ``inputs_processor`` and ``responses_processor``."""
         predictor = cls.__new__(cls)
-        predictor._setup(nn_module, argus_params, blend_weights, chunk_size, resolve_device(device))
+        predictor._setup(nn_module, argus_params, blend_weights, chunk_size, length_bucket, resolve_device(device))
         return predictor
 
-    def _setup(self, nn_module, argus_params: dict, blend_weights: str, chunk_size: int,
+    def _setup(self, nn_module, argus_params: dict, blend_weights: str, chunk_size: int, length_bucket: int,
                device: torch.device) -> None:
         self.device = device
         frame_stack = argus_params["frame_stack"]
@@ -161,8 +167,8 @@ class Predictor:
                 "predictor emits raw responses (responses_processor 'identity'); got "
                 f"{argus_params['responses_processor'][0]!r}"
             )
-        if chunk_size <= 0:
-            raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+        if chunk_size <= 0 or length_bucket <= 0:
+            raise ValueError(f"chunk_size and length_bucket must be positive, got {chunk_size} / {length_bucket}")
         if self.device.type == "cuda":
             set_matmul_policy()
         self.model = nn_module.to(self.device).eval()
@@ -175,6 +181,7 @@ class Predictor:
             get_blend_weights(blend_weights, frame_stack["size"])
         ).to(self.device)
         self.chunk_size = chunk_size
+        self.length_bucket = length_bucket
 
     def stage_signature(self) -> tuple:
         """What a staged trial depends on: the input processor, the window
@@ -238,14 +245,15 @@ class Predictor:
         replica_inputs = [trial_inputs.to(device) for _, device in self.replicas]  # once a trial
         for start in range(0, staged.windows.shape[0], self.chunk_size):
             windows = staged.windows[start : start + self.chunk_size]  # (C, S)
-            count = windows.shape[0]
-            flat = windows.reshape(-1)
-            preds = [_window_forward(model, inputs, part.to(device), mouse_index).to(self.device)
-                     for (model, device), inputs, part in zip(self.replicas, replica_inputs,
-                                                             windows.tensor_split(len(self.replicas))) if len(part)]
-            pred = preds[0] if len(preds) == 1 else torch.cat(preds)  # (C, N, S)
-            resp_acc.index_add_(1, flat, pred.transpose(0, 1).reshape(num_neurons, -1))
-            blend_acc.index_add_(0, flat, self.blend_weights.repeat(count))
+            if len(self.replicas) == 1:
+                flat, resp, blend = chunk_updates(self.model, trial_inputs, windows, self.blend_weights, mouse_index)
+            else:
+                preds = [_window_forward(model, inputs, part.to(device), mouse_index).to(self.device)
+                         for (model, device), inputs, part in zip(self.replicas, replica_inputs,
+                                                                 windows.tensor_split(len(self.replicas))) if len(part)]
+                flat, resp, blend = blend_updates(torch.cat(preds), windows, self.blend_weights)
+            resp_acc.index_add_(1, flat, resp)
+            blend_acc.index_add_(0, flat, blend)
         return resp_acc / blend_acc.clamp(min=1.0)
 
     def predict_trial_device(
@@ -281,6 +289,31 @@ def _window_forward(model: torch.nn.Module, trial_inputs: torch.Tensor, windows:
     batch = trial_inputs.index_select(1, windows.reshape(-1))  # (5, C*S, H, W)
     batch = batch.view(batch.shape[0], count, size, *batch.shape[2:]).transpose(0, 1)
     return model(batch, mouse_index=mouse_index).float()
+
+
+def blend_updates(pred: torch.Tensor, windows: torch.Tensor, blend_weights: torch.Tensor,
+                  valid: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the (C, N, S) predictions of the (C, S) ``windows`` add to the
+    blend: the frame indexes (C*S,), the (N, C*S) predictions and the (C*S,)
+    blend weights, each window's weighed by its 1/0 ``valid`` entry if given."""
+    count = windows.shape[0]
+    if valid is None:
+        blend = blend_weights.repeat(count)
+    else:
+        pred = pred * valid[:, None, None]
+        blend = (blend_weights[None, :] * valid[:, None]).reshape(-1)
+    return windows.reshape(-1), pred.transpose(0, 1).reshape(pred.shape[1], -1), blend
+
+
+def chunk_updates(model: torch.nn.Module, trial_inputs: torch.Tensor, windows: torch.Tensor,
+                  blend_weights: torch.Tensor, mouse_index: int,
+                  valid: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One chunk of window forwards over a (5, T, H, W) trial stack, as
+    ``blend_updates`` of their predictions: a pure function of the stack,
+    the (C, S) windows and their (C,) ``valid`` rows, which the live
+    ``Predictor`` and the exported trial program (``infer/export.py``) both
+    run."""
+    return blend_updates(_window_forward(model, trial_inputs, windows, mouse_index), windows, blend_weights, valid)
 
 
 def _load_trial_arrays(trial_data: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -49,6 +49,7 @@ from sensorium_tpu_torch.ops.conv import (
     grouped_pointwise,
     pointwise,
 )
+from sensorium_tpu_torch.ops.dw_kernels import spatial_out_size
 from sensorium_tpu_torch.ops.norm import BatchNorm
 from sensorium_tpu_torch.ops.pe import position_encoding_3d
 from sensorium_tpu_torch.ops.shuffle import channel_shuffle
@@ -292,6 +293,7 @@ class DwiseNeuro(nn.Module):
         self.readout_pad_multiple = readout_pad_multiple
         self.drop_rate, self.drop_path_rate = drop_rate, drop_path_rate
         self._pe_cache: dict[tuple, torch.Tensor] = {}
+        self._pe_buffers: dict[tuple, str] = {}  # (C, T, H, W) -> name of a held table
 
         self.stem_kernel = kaiming_normal_out((in_channels, features[0]), features[0], generator)
         self.stem_bn = BatchNormAct(features[0], act=False, dtype=dtype)
@@ -342,12 +344,41 @@ class DwiseNeuro(nn.Module):
         return padded_group_size(self.readout_outputs, self.groups, self.readout_pad_multiple)
 
     def _position_encoding(self, x: torch.Tensor) -> torch.Tensor:
-        """The (T, H, W, C) PE table for x, in x's dtype, kept on x's device."""
+        """The (T, H, W, C) PE table for x, in x's dtype, kept on x's device:
+        a held buffer (``hold_position_encodings``), else a cached table.
+
+        Under tracing without a held buffer the table is made anew and
+        becomes a constant of the graph; the cache holds only tables of real
+        tensors."""
         key = (x.shape[-1], *x.shape[1:4], x.dtype, x.device)
+        held = self._pe_buffers.get(key[:4])
+        if held is not None:
+            return getattr(self, held).to(dtype=x.dtype)
+        if torch.compiler.is_compiling():
+            table = position_encoding_3d(x.shape[-1], *x.shape[1:4])
+            return torch.from_numpy(table).to(device=x.device, dtype=x.dtype)
         if key not in self._pe_cache:
             table = position_encoding_3d(x.shape[-1], *x.shape[1:4])
             self._pe_cache[key] = torch.from_numpy(table).to(device=x.device, dtype=x.dtype)
         return self._pe_cache[key]
+
+    def hold_position_encodings(self, frames: int, height: int, width: int) -> None:
+        """Keep the PE tables that inputs of ``frames`` x ``height`` x
+        ``width`` meet as non-persistent buffers, in the compute dtype on the
+        module's device. A traced graph (``torch.export``) takes buffers as
+        inputs; a table made while tracing the body of a ``scan`` would be a
+        constant there, which the serializer refuses."""
+        device = self.stem_kernel.device
+        for i in range(self.num_blocks):
+            block = getattr(self, f"block_{i}")
+            key = (self.core_features[i], frames, height, width)
+            if key not in self._pe_buffers:
+                table = torch.from_numpy(position_encoding_3d(*key)).to(device=device, dtype=self.dtype)
+                self._pe_buffers[key] = f"pe_table_{i}"
+                self.register_buffer(f"pe_table_{i}", table, persistent=False)
+            k = block.spatial_dw_kernel.shape[0]
+            height = spatial_out_size(height, k, block.spatial_stride)
+            width = spatial_out_size(width, k, block.spatial_stride)
 
     def core(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         x = self.stem_bn(pointwise(x, self.stem_kernel.to(self.dtype)))

@@ -27,10 +27,15 @@ Counterpart of ``sensorium_tpu/ops/pallas_dw.py`` and
 ``(x, w)`` as the JAX custom VJPs do, and returns dx in x's dtype and dw
 rounded to w's dtype.
 
-A wrapper given CPU tensors computes the plain version. Given CUDA tensors it
-launches the kernel on the current stream or raises; it never falls back.
-``LAUNCHES`` counts the wrapper calls that launched a kernel, and nothing
-else.
+Each kernel is also the ``torch.library`` custom op ``sensorium::<name>``
+(``dw_spatial_dx`` takes ``h`` and ``wd`` for ``hw``), with a CUDA
+implementation that launches the kernel, a CPU one that is the plain version
+and a fake one that gives the output's shape and dtype, so that a traced
+graph (``torch.export``) holds it; importing this module registers them. A
+wrapper checks its operands and calls its op: given CPU tensors it computes
+the plain version; given CUDA tensors it launches the kernel on the current
+stream or raises; it never falls back. ``LAUNCHES`` counts the launches of
+the kernels, and nothing else.
 """
 
 from __future__ import annotations
@@ -599,14 +604,39 @@ def dw_temporal_dw_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Ten
     return dw
 
 
-# ---------------------------------------------------------------------- wrappers
+# -------------------------------------------------------------------- custom ops
+#
+# Each kernel is the custom op ``sensorium::<name>``, so that a traced graph
+# (``torch.export``, ``infer/export.py``) holds it as one node: its CUDA
+# implementation launches the kernel, its CPU one is the plain version, and
+# its fake one gives the output's shape and dtype only. The CUDA
+# implementations check their operands themselves, since a loaded artifact
+# calls them without the wrappers.
 
 
-def dw_spatial_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Depthwise (1, k, k) conv over (H, W); CUDA kernel, or the plain version on CPU."""
+def _custom_op(name: str, cpu_impl, fake_impl):
+    """Register the decorated CUDA implementation as ``sensorium::<name>``,
+    with ``cpu_impl`` and ``fake_impl`` beside it."""
+
+    def register(cuda_impl):
+        op = torch.library.custom_op(f"sensorium::{name}", cuda_impl, mutates_args=(), device_types="cuda")
+        op.register_kernel("cpu")(cpu_impl)
+        op.register_fake(fake_impl)
+        return op
+
+    return register
+
+
+def _spatial_fwd_fake(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     _check_spatial(x, w, stride)
-    if _on_cpu(x, w):
-        return dw_spatial_plain(x, w, stride)
+    b, t, h, wd, c = x.shape
+    k = w.shape[0]
+    return x.new_empty((b, t, spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride), c))
+
+
+@_custom_op("dw_spatial_fwd", dw_spatial_plain, _spatial_fwd_fake)
+def _dw_spatial_fwd_op(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    _check_spatial(x, w, stride)
     _check_cuda_operands("dw_spatial_fwd", x=x, w=w)
     k = w.shape[0]
     if k not in _COMPILED_KS:
@@ -622,14 +652,16 @@ def dw_spatial_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.T
     return y
 
 
-def fused_bn_silu_dw_spatial(
-    x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, w: torch.Tensor, stride: int = 1
-) -> torch.Tensor:
-    """``dw_spatial_fwd(silu(x * scale + shift), w, stride)`` with the prologue
-    in fp32; CUDA kernel, or the plain version on CPU."""
+def _fused_fake(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, w: torch.Tensor,
+                stride: int) -> torch.Tensor:
     _check_fused(x, scale, shift, w, stride)
-    if _on_cpu(x, scale, shift, w):
-        return fused_bn_silu_dw_spatial_plain(x, scale, shift, w, stride)
+    return _spatial_fwd_fake(x, w, stride)
+
+
+@_custom_op("fused_bn_silu_dw_spatial", fused_bn_silu_dw_spatial_plain, _fused_fake)
+def _fused_bn_silu_dw_spatial_op(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, w: torch.Tensor,
+                                 stride: int) -> torch.Tensor:
+    _check_fused(x, scale, shift, w, stride)
     _check_cuda_operands("fused_bn_silu_dw_spatial", x=x, w=w)
     for name, t in (("scale", scale), ("shift", shift)):
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
@@ -651,11 +683,14 @@ def fused_bn_silu_dw_spatial(
     return y
 
 
-def dw_temporal_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise (k, 1, 1) conv over T; CUDA kernel, or the plain version on CPU."""
+def _temporal_fwd_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_temporal(x, w)
-    if _on_cpu(x, w):
-        return dw_temporal_plain(x, w)
+    return torch.empty_like(x)
+
+
+@_custom_op("dw_temporal_fwd", dw_temporal_plain, _temporal_fwd_fake)
+def _dw_temporal_fwd_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check_temporal(x, w)
     _check_cuda_operands("dw_temporal_fwd", x=x, w=w)
     k = w.shape[0]
     if k not in _COMPILED_KS:
@@ -672,20 +707,31 @@ def dw_temporal_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def dw_spatial_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int, int]) -> torch.Tensor:
-    """dL/dx of ``dw_spatial_fwd`` for an input of spatial size ``hw``; CUDA
-    kernel, or the plain version on CPU."""
-    h, wd = hw
+def _check_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, h: int, wd: int) -> None:
     k = w.shape[0]
-    b, t, oh, ow, c = dy.shape
-    if (oh, ow) != (spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)):
-        raise ValueError(f"dw_spatial_dx: dy {tuple(dy.shape)} is not the output of an input of size {hw}")
+    if tuple(dy.shape[2:4]) != (spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)):
+        raise ValueError(f"dw_spatial_dx: dy {tuple(dy.shape)} is not the output of an input of size {(h, wd)}")
     _check_spatial(dy, w, stride)
-    if _on_cpu(dy, w):
-        return dw_spatial_dx_plain(dy, w, stride, hw)
+
+
+def _spatial_dx_cpu(dy: torch.Tensor, w: torch.Tensor, stride: int, h: int, wd: int) -> torch.Tensor:
+    _check_dx(dy, w, stride, h, wd)
+    return dw_spatial_dx_plain(dy, w, stride, (h, wd))
+
+
+def _spatial_dx_fake(dy: torch.Tensor, w: torch.Tensor, stride: int, h: int, wd: int) -> torch.Tensor:
+    _check_dx(dy, w, stride, h, wd)
+    return dy.new_empty((dy.shape[0], dy.shape[1], h, wd, dy.shape[4]))
+
+
+@_custom_op("dw_spatial_dx", _spatial_dx_cpu, _spatial_dx_fake)
+def _dw_spatial_dx_op(dy: torch.Tensor, w: torch.Tensor, stride: int, h: int, wd: int) -> torch.Tensor:
+    _check_dx(dy, w, stride, h, wd)
     _check_cuda_operands("dw_spatial_dx", dy=dy, w=w)
+    k = w.shape[0]
     if k not in _COMPILED_KS:
         raise NotImplementedError(f"dw_spatial_dx: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
+    b, t, oh, ow, c = dy.shape
     sms = torch.cuda.get_device_properties(dy.device).multi_processor_count
     geo = dx_launch_geometry(b * t, h, wd, c, k, stride, dy.element_size(), sms)
     _check_grid("dw_spatial_dx", tuple(dy.shape), geo, h * wd * c, oh * ow * c)
@@ -695,20 +741,32 @@ def dw_spatial_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int,
     return dx
 
 
-def dw_spatial_dw(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """dL/dw of ``dw_spatial_fwd``, (k, k, C) fp32; CUDA kernel (partial sums
-    per block, then a fixed-order sum of them), or the plain version on CPU."""
+def _check_spatial_dw(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> None:
     b, t, h, wd, c = x.shape
-    oh, ow = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
-    if dy.shape != (b, t, oh, ow, c):
+    if tuple(dy.shape) != (b, t, spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride), c):
         raise ValueError(f"dw_spatial_dw: dy {tuple(dy.shape)} is not the output of x {tuple(x.shape)}")
-    if _on_cpu(x, dy):
-        return dw_spatial_dw_plain(x, dy, k, stride)
+
+
+def _spatial_dw_cpu(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    _check_spatial_dw(x, dy, k, stride)
+    return dw_spatial_dw_plain(x, dy, k, stride)
+
+
+def _spatial_dw_fake(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    _check_spatial_dw(x, dy, k, stride)
+    return x.new_empty((k, k, x.shape[-1]), dtype=_acc_dtype(x.dtype))
+
+
+@_custom_op("dw_spatial_dw", _spatial_dw_cpu, _spatial_dw_fake)
+def _dw_spatial_dw_op(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    _check_spatial_dw(x, dy, k, stride)
     _check_cuda_operands("dw_spatial_dw", x=x, dy=dy)
     if k not in _COMPILED_KS:
         raise NotImplementedError(f"dw_spatial_dw: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
     if stride not in (1, 2):
         raise NotImplementedError(f"dw_spatial_dw: stride {stride} not supported (1 or 2)")
+    b, t, h, wd, c = x.shape
+    oh, ow = dy.shape[2], dy.shape[3]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     geo = dw_launch_geometry(b * t, h, wd, c, k, stride, x.element_size(), sms)
     if (h * wd * c > _INT32_MAX or oh * ow * c > _INT32_MAX or geo["items"] > _INT32_MAX
@@ -723,13 +781,24 @@ def dw_spatial_dw(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> tor
     return dw
 
 
-def dw_temporal_dw(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
-    """dL/dw of ``dw_temporal_fwd``, (k, C) fp32; CUDA kernel (partial sums
-    per block, then a fixed-order sum of them), or the plain version on CPU."""
+def _check_temporal_dw(x: torch.Tensor, dy: torch.Tensor) -> None:
     if dy.shape != x.shape:
         raise ValueError(f"dw_temporal_dw: dy {tuple(dy.shape)} and x {tuple(x.shape)} differ")
-    if _on_cpu(x, dy):
-        return dw_temporal_dw_plain(x, dy, k)
+
+
+def _temporal_dw_cpu(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    _check_temporal_dw(x, dy)
+    return dw_temporal_dw_plain(x, dy, k)
+
+
+def _temporal_dw_fake(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    _check_temporal_dw(x, dy)
+    return x.new_empty((k, x.shape[-1]), dtype=_acc_dtype(x.dtype))
+
+
+@_custom_op("dw_temporal_dw", _temporal_dw_cpu, _temporal_dw_fake)
+def _dw_temporal_dw_op(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    _check_temporal_dw(x, dy)
     _check_cuda_operands("dw_temporal_dw", x=x, dy=dy)
     if k not in _COMPILED_KS:
         raise NotImplementedError(f"dw_temporal_dw: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
@@ -745,6 +814,67 @@ def dw_temporal_dw(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     _launch("dw_temporal_dw", x.dtype, x.device, x.data_ptr(), dy.data_ptr(), workspace.data_ptr(), dw.data_ptr(),
             b, t, h * wd, c, k, geo["frame_tile"], geo["per_block"], geo["slabs"], geo["smem_bytes"])
     return dw
+
+
+# ---------------------------------------------------------------------- wrappers
+#
+# Each wrapper checks its operands and calls its op: CPU tensors take the
+# plain version, CUDA tensors the kernel, and any others raise.
+
+
+def _check_route(name: str, **operands: torch.Tensor) -> None:
+    if not _on_cpu(*operands.values()):
+        _check_cuda_operands(name, **operands)
+
+
+def dw_spatial_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Depthwise (1, k, k) conv over (H, W); CUDA kernel, or the plain version on CPU."""
+    _check_spatial(x, w, stride)
+    _check_route("dw_spatial_fwd", x=x, w=w)
+    return torch.ops.sensorium.dw_spatial_fwd(x, w, stride)
+
+
+def fused_bn_silu_dw_spatial(
+    x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, w: torch.Tensor, stride: int = 1
+) -> torch.Tensor:
+    """``dw_spatial_fwd(silu(x * scale + shift), w, stride)`` with the prologue
+    in fp32; CUDA kernel, or the plain version on CPU."""
+    _check_fused(x, scale, shift, w, stride)
+    if not _on_cpu(x, scale, shift, w):
+        _check_cuda_operands("fused_bn_silu_dw_spatial", x=x, w=w)
+    return torch.ops.sensorium.fused_bn_silu_dw_spatial(x, scale, shift, w, stride)
+
+
+def dw_temporal_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise (k, 1, 1) conv over T; CUDA kernel, or the plain version on CPU."""
+    _check_temporal(x, w)
+    _check_route("dw_temporal_fwd", x=x, w=w)
+    return torch.ops.sensorium.dw_temporal_fwd(x, w)
+
+
+def dw_spatial_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int, int]) -> torch.Tensor:
+    """dL/dx of ``dw_spatial_fwd`` for an input of spatial size ``hw``; CUDA
+    kernel, or the plain version on CPU."""
+    h, wd = hw
+    _check_dx(dy, w, stride, h, wd)
+    _check_route("dw_spatial_dx", dy=dy, w=w)
+    return torch.ops.sensorium.dw_spatial_dx(dy, w, stride, h, wd)
+
+
+def dw_spatial_dw(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """dL/dw of ``dw_spatial_fwd``, (k, k, C) fp32; CUDA kernel (partial sums
+    per block, then a fixed-order sum of them), or the plain version on CPU."""
+    _check_spatial_dw(x, dy, k, stride)
+    _check_route("dw_spatial_dw", x=x, dy=dy)
+    return torch.ops.sensorium.dw_spatial_dw(x, dy, k, stride)
+
+
+def dw_temporal_dw(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """dL/dw of ``dw_temporal_fwd``, (k, C) fp32; CUDA kernel (partial sums
+    per block, then a fixed-order sum of them), or the plain version on CPU."""
+    _check_temporal_dw(x, dy)
+    _check_route("dw_temporal_dw", x=x, dy=dy)
+    return torch.ops.sensorium.dw_temporal_dw(x, dy, k)
 
 
 # ----------------------------------------------------------------------- autograd

@@ -851,3 +851,59 @@ def test_train_step_over_a_group_of_one_is_bitwise_the_single_card_step(card_gro
     for name in live:
         assert torch.equal(live[name], mesh_live[name]), name
         assert torch.equal(ema[name], mesh_ema[name]), name
+
+
+@pytest.fixture
+def card_model(cuda, tmp_path):
+    """A tiny fp32 model on the card, and its checkpoint."""
+    model = MouseModel({**ARGUS, "nn_module": ("dwiseneuro", TINY)}, device="cuda")
+    model.build_state(seed=0, learning_rate=0.0)
+    path = tmp_path / "model-000-0.100000.ckpt"
+    model.save(path)
+    return model, path
+
+
+@pytest.mark.cuda
+def test_window_artifact_traced_on_the_card_matches_the_live_model(card_model, tmp_path):
+    """``infer/export.py`` on the card: the artifact launches the kernels
+    through the ``sensorium::`` ops and gives the live model's numbers, at
+    two batch sizes from one artifact."""
+    from sensorium_tpu_torch.infer.export import export_forward, load_exported, save_exported
+
+    model, _ = card_model
+    artifact = load_exported(save_exported(tmp_path / "m1.pt2", export_forward(model, mouse_index=1)), device="cuda")
+    rng = np.random.default_rng(30)
+    for batch in (1, 3):
+        x = rng.uniform(0, 255, (batch, 5, 4, 16, 16)).astype(np.float32)
+        before = dict(dw_kernels.LAUNCHES)
+        with torch.inference_mode():
+            got = artifact(torch.from_numpy(x).cuda())
+        assert dw_kernels.LAUNCHES["dw_spatial_fwd"] == before["dw_spatial_fwd"] + len(TINY["core_features"])
+        assert dw_kernels.LAUNCHES["dw_temporal_fwd"] == before["dw_temporal_fwd"] + len(TINY["core_features"])
+        torch.testing.assert_close(got, model.predict(x, mouse_index=1), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_card_traced_artifacts_run_on_the_cpu(card_model, tmp_path):
+    """The window and trial artifacts traced on the card, moved to the CPU
+    (plain versions), against the card within the card-vs-CPU tolerance."""
+    from sensorium_tpu_torch.infer.export import export_model_file, load_exported
+
+    _, path = card_model
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.uniform(0, 255, (2, 5, 4, 16, 16)).astype(np.float32))
+    window = export_model_file(path, tmp_path / "window.pt2", device="cuda")["artifact"]
+    with torch.inference_mode():
+        card = load_exported(window, device="cuda")(x.cuda()).cpu()
+        cpu = load_exported(window, device="cpu")(x)
+    torch.testing.assert_close(cpu, card, rtol=1e-4, atol=1e-4)
+
+    trial = export_model_file(path, tmp_path / "trial.pt2", mouse_index=1, trial=True, src_hw=(12, 14),
+                              chunk_size=8, length_bucket=16, device="cuda")["artifact"]
+    args = (torch.from_numpy(rng.uniform(0, 255, (32, 12, 14)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(0, 5, (2, 32)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(0, 50, (2, 32)).astype(np.float32)), torch.tensor(29, dtype=torch.int32))
+    with torch.inference_mode():
+        card = load_exported(trial, device="cuda")(*(a.cuda() for a in args)).cpu()
+        cpu = load_exported(trial, device="cpu")(*args)
+    torch.testing.assert_close(cpu, card, rtol=1e-4, atol=1e-4)

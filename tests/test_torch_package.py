@@ -50,7 +50,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "sensorium_tpu_torch.engine.model" in result["modules"]
     for name in ("tools.dwbench", "data.loader", "data.native", "engine.callbacks", "engine.checkpoint",
                  "utils.msgpack", "infer.submission", "cli.predict", "cli.import_torch", "cli.train",
-                 "cli.download_data", "utils.profiling"):
+                 "cli.download_data", "utils.profiling", "infer.export", "cli.export"):
         assert f"sensorium_tpu_torch.{name}" in result["modules"]
 
 
@@ -65,6 +65,22 @@ def test_training_engine_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_serving_export_imports_no_jax():
+    """The export module and its CLI alone pull in neither JAX nor the JAX
+    package; the export module imports no model or engine code until it exports."""
+    code = (
+        "import json, sys\n"
+        "import sensorium_tpu_torch.infer.export, sensorium_tpu_torch.cli.export\n"
+        "print(json.dumps({'jax': sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'sensorium_tpu')), "
+        "'model': sorted(m for m in sys.modules "
+        "if m.startswith(('sensorium_tpu_torch.models', 'sensorium_tpu_torch.engine')))}))"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"jax": [], "model": []}
 
 
 def test_data_feed_imports_neither_pillow_nor_scipy():
@@ -103,6 +119,12 @@ def test_entry_points_refuse_cuda_without_a_card():
         Predictor("model-000-0.000000.ckpt")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_model("model-000-0.000000.ckpt")
+    from sensorium_tpu_torch.infer.export import check_artifact, load_exported
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_exported("model.pt2")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        check_artifact("model.pt2")
 
 
 @pytest.mark.parametrize("alone", [False, True])
