@@ -180,7 +180,31 @@ Phases, each of which passes or makes the script exit non-zero:
    ``scan`` runs (torch 2.11 runs the first chunk twice). Then an fp32
    window artifact of mouse 0, traced on the card, must give the live
    model's numbers bitwise on phase 5's two windows, and moved to the CPU
-   the card's within phase 5's bound.
+   the card's within phase 5's bound;
+18. tensor parallelism (``parallel/tensor.py``). 18a, two ranks of a
+   ``{data: 1, model: 2}`` mesh on this card through the library (gloo,
+   whose ``all_gather`` on CUDA tensors is checked first, with the other
+   collectives): a child takes one unsharded flagship step at batch 16 in
+   fp32 and bf16 (SGD, drop rates on); then each rank takes the same step
+   on all 16 rows with half of the cortex and readout weights through
+   ``MouseModel(mesh=...)``. Rank 0 holds it to the saved step at 16a's
+   bounds (a sharded weight's gradient and value gathered whole), the ranks'
+   replicated weights must be the same, each rank's launches a step's, and
+   each prints its peak memory beside one card's. 18b, on the fp32 ranks: a
+   ``.orbax`` train state and a model checkpoint after the step; fresh
+   models load the state and take 2 more steps, bit for bit the
+   uninterrupted ranks'; the TP-written checkpoint loads into one card's
+   ``load_model`` and predicts within the serving tolerance of the TP
+   forward; the directory's bytes and the save and load seconds are
+   printed. 18c, only with two cards or more: smoke_001 in fp32 (every
+   block rematerialized) through ``cli.train --mesh data,model
+   --sharded-checkpoint`` over every card, its logs held at 16b's
+   tolerances to the same fp32 fold on one card (in bf16 a forward's
+   roundings depend on its size, which the data axis divides), then the
+   SIGTERM run with those flags (exit 75) and ``--resume`` (exit 0); with
+   one card it prints that 18c did not run. ``--tp-cards`` runs 18c alone
+   on phase 11's dataset and fails with fewer than two cards. Two ranks on
+   one card prove numbers, not speed.
 
 After the counted serving run, one more request runs under
 ``torch.profiler`` and the device time is summed by kernel. The script then
@@ -190,8 +214,8 @@ prints the ``{"kernels": [...]}`` line, the nvidia-smi line again, and last
 ``chip_smoke_train_trace.json``) and the fit's logs go to ``--out``, by
 default ``build/chip_smoke/`` in the checkout; the fit's dataset is written
 there too and removed after phase 15. Checkpoints, train states, the
-prediction tree, the experiments and the artifacts of phases 12-17 go to a
-temporary directory outside ``--out``, removed at the end. Each phase 12-17
+prediction tree, the experiments and the artifacts of phases 12-18 go to a
+temporary directory outside ``--out``, removed at the end. Each phase 12-18
 counts the kernel launches of its own runs, from 0, and checks them against
 their forwards and steps.
 """
@@ -303,6 +327,7 @@ CLI_EXPERIMENT = "smoke_001"
 CLI_DISTILL = "distill_smoke"  # distillation_001 at smoke_001's size, smoke_001's fold as the teacher
 CLI_SIGTERM = "sigterm_smoke"  # smoke_001 with CLI_SIGTERM_EPOCH_SIZE clips an epoch
 CLI_SIGTERM_EPOCH_SIZE = 640  # 20 steps an epoch at batch 32: the signal lands inside the fit
+CLI_TP_FP32 = "tp_fp32_smoke"  # 18c: smoke_001 in fp32 with every block rematerialized
 CLI_CHILD_TIMEOUT = 300  # seconds
 # Phase 16: data parallelism. 16a holds two ranks of 16 rows to one step of
 # 32, in fp32 at tests/test_parallel.py's tolerances (the loss 1e-5
@@ -334,6 +359,19 @@ EXPORT_BUCKET = 64
 EXPORT_REL_TOL = 1e-5
 EXPORT_OTHER_CHUNK = 30
 EXPORT_CHECKPOINT = "model-000-0.000000.ckpt"  # phase 13's EMA weights after one step, in the work directory
+# Phase 18: tensor parallelism. 18a holds two ranks of a {data: 1, model: 2}
+# mesh on this card, each holding all TP_BATCH rows and half of the cortex
+# and readout weights, to one card's step of TP_BATCH rows at 16a's MESH_*
+# bounds (a sharded weight's gradient and value gathered whole). 18b, on the
+# fp32 ranks: a .orbax train state and a model checkpoint after the step;
+# fresh models load the state and take TP_CONTINUED_STEPS more steps, which
+# must be the uninterrupted ranks' bit for bit; the checkpoint loads into one
+# card's load_model, whose forward on TP_PREDICT_ROWS rows is within
+# CPU_REL_TOL (the serving tolerance) of the TP forward's largest value.
+TP_WORLD = 2
+TP_BATCH = 16
+TP_CONTINUED_STEPS = 2
+TP_PREDICT_ROWS = 4
 # Runs ``python -m MODULE ARGS`` and writes the kernel launches to PATH when the process exits.
 COUNTED_MODULE = (
     "import atexit, json, runpy, sys\n"
@@ -1681,24 +1719,29 @@ def submission_flow(record: dict, fit_root: Path, work: Path) -> dict:
 
 
 def write_cli_configs(configs_dir: Path) -> None:
-    """The port's configs, and the two phase 15 derives from them: the
-    distillation recipe at smoke size with smoke_001's fold as its teacher,
-    and smoke_001 with CLI_SIGTERM_EPOCH_SIZE clips an epoch."""
+    """The port's configs, and those phases 15 and 18c derive from them:
+    the distillation recipe at smoke size with smoke_001's fold as its
+    teacher, smoke_001 with CLI_SIGTERM_EPOCH_SIZE clips an epoch, and
+    smoke_001 in fp32 with every block rematerialized."""
     configs_dir.mkdir(parents=True)
     for path in sorted(PORT_CONFIGS.glob("*.py")):
         shutil.copy(path, configs_dir / path.name)
-    derived = {
+    fp32 = {"dtype": "float32", "remat_blocks": tuple(range(9))}
+    derived = {  # name: (base, config changes, nn_module changes)
         CLI_DISTILL: ("distillation_001", {"train_epoch_size": 64, "num_epochs": [1, 1],
-                                           "distill": {"experiment": CLI_EXPERIMENT, "ratio": 0.36}}),
-        CLI_SIGTERM: (CLI_EXPERIMENT, {"train_epoch_size": CLI_SIGTERM_EPOCH_SIZE}),
+                                           "distill": {"experiment": CLI_EXPERIMENT, "ratio": 0.36}}, {}),
+        CLI_SIGTERM: (CLI_EXPERIMENT, {"train_epoch_size": CLI_SIGTERM_EPOCH_SIZE}, {}),
+        CLI_TP_FP32: (CLI_EXPERIMENT, {}, fp32),
     }
-    for name, (base, changes) in derived.items():
+    for name, (base, changes, nn_changes) in derived.items():
         (configs_dir / f"{name}.py").write_text(
             "from importlib.machinery import SourceFileLoader\n"
             "from pathlib import Path\n\n"
             f"_path = str(Path(__file__).resolve().parent / {base + '.py'!r})\n"
             f"config = dict(SourceFileLoader({base!r}, _path).load_module().config)\n"
-            f"config.update({changes!r})\n")
+            f"config.update({changes!r})\n"
+            "_name, _nn = config['argus_params']['nn_module']\n"
+            f"config['argus_params'] = {{**config['argus_params'], 'nn_module': (_name, {{**_nn, **{nn_changes!r}}})}}\n")
 
 
 class CliClock:
@@ -1792,6 +1835,11 @@ def expected_cli_launches(steps: int, val_forwards: int, student: dict, teacher:
             "fused_bn_silu_dw_spatial": 0}
 
 
+def cli_train_steps(config: dict) -> int:
+    """The train steps of an epoch under ``config``."""
+    return config["train_epoch_size"] // constants.num_mice * constants.num_mice // config["batch_size"]
+
+
 def cli_fold_shape(config: dict) -> tuple[int, int]:
     """(train steps, val batches) an epoch of fold 0 under ``config``."""
     from sensorium_tpu_torch.data import mouse_data
@@ -1801,7 +1849,7 @@ def cli_fold_shape(config: dict) -> tuple[int, int]:
     from sensorium_tpu_torch.data.responses import get_responses_processor
 
     params = config["argus_params"]
-    steps = config["train_epoch_size"] // constants.num_mice * constants.num_mice // config["batch_size"]
+    steps = cli_train_steps(config)
     val = ValMiceDataset([mouse_data.get_mouse_data(m, ["fold_0"]) for m in constants.mice],
                          WindowIndexer(**params["frame_stack"]), get_inputs_processor(*params["inputs_processor"]),
                          get_responses_processor(*params["responses_processor"]))
@@ -2002,9 +2050,10 @@ def mesh_params(dtype: str) -> dict:
 MESH_DTYPES = ("float32", "bfloat16")
 
 
-def mesh_reference(work: Path) -> None:
-    """Phase 16a, in a child process: one unsharded flagship step at batch 32
-    in each of MESH_DTYPES, saved for the ranks to compare with."""
+def mesh_reference(work: Path, batch: int = TRAIN_BATCH, name: str = "reference.pt") -> None:
+    """Phase 16a (and 18a), in a child process: one unsharded flagship step
+    at ``batch`` rows in each of MESH_DTYPES, saved for the ranks to compare
+    with."""
     import gc
 
     import torch
@@ -2017,7 +2066,7 @@ def mesh_reference(work: Path) -> None:
         torch.cuda.reset_peak_memory_stats()
         model = MouseModel(mesh_params(dtype), device="cuda")
         model.build_state(seed=SEED, learning_rate=MESH_LR)
-        loss = float(model.train_step(synthetic_batch(TRAIN_BATCH)))
+        loss = float(model.train_step(synthetic_batch(batch)))
         module = model.state.model
         saved[dtype] = {"loss": loss, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                         "grads": {name: p.grad.detach().float().cpu() for name, p in module.named_parameters()},
@@ -2025,30 +2074,39 @@ def mesh_reference(work: Path) -> None:
         del model, module
         gc.collect()
         torch.cuda.empty_cache()
-    torch.save(saved, work / "reference.pt")
+    torch.save(saved, work / name)
 
 
 def check_gloo_collectives(mesh) -> dict:
-    """Whether gloo reduces and broadcasts CUDA tensors as the port asks it to."""
+    """Whether gloo reduces, broadcasts and gathers CUDA tensors (the
+    gathers in fp32 and bf16, the tensor-parallel layers' dtypes) as the
+    port asks it to, over all of the mesh's processes."""
     import torch
+    import torch.distributed as dist
 
     from sensorium_tpu_torch.parallel import mesh as mesh_lib
 
+    world = mesh.processes
     ok = {}
-    for op, expected in (("sum", MESH_WORLD * (MESH_WORLD + 1) / 2), ("max", MESH_WORLD), ("min", 1)):
+    for op, expected in (("sum", world * (world + 1) / 2), ("max", world), ("min", 1)):
         tensor = torch.full((3,), float(mesh.index + 1), device="cuda")
-        mesh_lib.all_reduce(mesh, tensor, op)
+        mesh_lib.all_reduce(mesh, tensor, op, over="all")
         ok[f"all_reduce_{op}"] = tensor.is_cuda and bool((tensor == expected).all())
     tensor = torch.full((3,), float(mesh.index + 7), device="cuda")
     mesh_lib.replicate_tree(mesh, tensor)
     ok["broadcast"] = tensor.is_cuda and bool((tensor == 7).all())
+    for dtype in (torch.float32, torch.bfloat16):
+        parts = [torch.empty(3, device="cuda", dtype=dtype) for _ in range(world)]
+        dist.all_gather(parts, torch.full((3,), float(mesh.index + 1), device="cuda", dtype=dtype), group=mesh.group)
+        ok[f"all_gather_{str(dtype).removeprefix('torch.')}"] = all(
+            p.is_cuda and p.dtype == dtype and bool((p == i + 1).all()) for i, p in enumerate(parts))
     return ok
 
 
-def compare_with_reference(module, loss: float, reference: dict, dtype: str) -> dict:
-    """16a's errors against the one-card step, as fractions of their bounds
-    (see MESH_*); in bf16 each bound adds MESH_BF16_FACTOR times the
-    tensor's own bf16 error."""
+def compare_with_reference(grads: dict, state: dict, loss: float, reference: dict, dtype: str) -> dict:
+    """16a's (and 18a's) errors against the one-card step, as fractions of
+    their bounds (see MESH_*); ``grads`` and ``state`` by name, whole. In
+    bf16 each bound adds MESH_BF16_FACTOR times the tensor's own bf16 error."""
     ref = reference[dtype]
     fp32 = reference["float32"]
 
@@ -2059,9 +2117,9 @@ def compare_with_reference(module, loss: float, reference: dict, dtype: str) -> 
 
     model_max = max(float(g.abs().max()) for g in ref["grads"].values())
     ratios, bf16_rel, over_bf16 = {}, [], []
-    for name, p in module.named_parameters():
+    for name, grad in grads.items():
         expected = ref["grads"][name]
-        diff = float((p.grad.detach().float().cpu() - expected).abs().max())
+        diff = float((grad.detach().float().cpu() - expected).abs().max())
         bound = (TRAIN_GRAD_REL_TOL * float(expected.abs().max()) + TRAIN_GRAD_FLOOR * model_max
                  + bf16_error("grads", name))
         ratios[f"grad/{name}"] = diff / bound
@@ -2069,7 +2127,7 @@ def compare_with_reference(module, loss: float, reference: dict, dtype: str) -> 
         if error > 0.0:
             bf16_rel.append(error / max(float(fp32["grads"][name].abs().max()), 1e-30))
             over_bf16.append(diff / error)
-    for name, value in module.state_dict().items():
+    for name, value in state.items():
         expected = ref["state"][name]
         if name.endswith((".mean", ".var")):
             rtol, atol = MESH_STATS_RTOL, MESH_STATS_ATOL
@@ -2130,7 +2188,8 @@ def mesh_rank(work: Path, rank: int, port: int) -> None:
             low = mesh_lib.all_reduce(mesh, sums.clone(), "min")
             step["replicas_identical"] = bool(torch.equal(high, low))
             if reference is not None:
-                step.update(compare_with_reference(module, loss, reference, dtype))
+                grads = {name: p.grad for name, p in module.named_parameters()}
+                step.update(compare_with_reference(grads, module.state_dict(), loss, reference, dtype))
             result[dtype] = step
             del model, module
             gc.collect()
@@ -2408,6 +2467,277 @@ def mesh_cards_cli(record: dict, fit_root: Path, work: Path) -> None:
                             "predict_max_rel_err": worst_rel}
 
 
+def tp_checkpoints(model, mesh, work: Path, batch) -> dict:
+    """Phase 18b on one rank: the sharded train state and a model checkpoint
+    of ``model`` after its step, a fresh model resumed from the state, then
+    TP_CONTINUED_STEPS steps of both; the TP forward that the one-card
+    checkpoint is held to (saved by the first rank)."""
+    import torch
+
+    from sensorium_tpu_torch.engine.model import MouseModel
+
+    state_dir, checkpoint = work / "tp_state.orbax", work / "tp_model.ckpt"
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    model.save_train_state(state_dir, extra={"epoch": 0})
+    save_s = time.perf_counter() - start
+    start = time.perf_counter()
+    model.save(checkpoint)
+    save_model_s = time.perf_counter() - start
+    prediction = model.predict(batch.inputs[:TP_PREDICT_ROWS], mouse_index=0)
+    if mesh.index == 0:
+        torch.save(prediction.cpu(), work / "tp_prediction.pt")
+    fresh = MouseModel(model.params, mesh=mesh)
+    fresh.build_state(seed=SEED + 1, learning_rate=MESH_LR)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    extra = fresh.load_train_state(state_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - start
+
+    def same(a, b) -> bool:
+        pairs = [(a.state.model.state_dict(), b.state.model.state_dict())]
+        return all(torch.equal(x[k], y[k]) for x, y in pairs for k in x) and a.state.step == b.state.step and \
+            torch.equal(a.state.generator.get_state(), b.state.generator.get_state())
+
+    restored = same(model, fresh) and extra == {"epoch": 0}
+    losses = [[float(m.train_step(batch)) for _ in range(TP_CONTINUED_STEPS)] for m in (model, fresh)]
+    return {"save_seconds": save_s, "save_model_seconds": save_model_s, "load_seconds": load_s,
+            "bytes": sum(f.stat().st_size for f in state_dir.rglob("*") if f.is_file()),
+            "restored_bitwise": restored, "losses": losses,
+            "continued_bitwise": losses[0] == losses[1] and same(model, fresh)}
+
+
+def tp_rank(work: Path, rank: int, port: int) -> None:
+    """Phase 18a (and 18b), in a child process: rank ``rank`` of a gloo group
+    on card 0 over a {data: 1, model: 2} mesh, one step in each of
+    MESH_DTYPES (the launches counted in bf16, the flagship's dtype)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from sensorium_tpu_torch.engine.model import MouseModel
+    from sensorium_tpu_torch.ops import dw_kernels
+    from sensorium_tpu_torch.parallel import mesh as mesh_lib
+    from sensorium_tpu_torch.parallel import tensor as tensor_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=TP_WORLD, rank=rank)
+    try:
+        mesh = mesh_lib.create_mesh(num_model=TP_WORLD, devices=["cuda:0"])
+        result = {"rank": rank, "shape": mesh.shape, "collectives": check_gloo_collectives(mesh)}
+        (work / f"tp_rank{rank}.json").write_text(json.dumps(result))
+        if not all(result["collectives"].values()):
+            return
+        reference = torch.load(work / "tp_reference.pt") if rank == 0 else None
+        batch = synthetic_batch(TP_BATCH)
+        for dtype in MESH_DTYPES:
+            model = MouseModel(mesh_params(dtype), mesh=mesh)
+            model.build_state(seed=SEED, learning_rate=MESH_LR)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            start = time.perf_counter()
+            loss = float(model.train_step(batch))
+            step = {"step_seconds": time.perf_counter() - start, "launches": dict(dw_kernels.LAUNCHES),
+                    "loss": loss, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            module = model.state.model
+            step["readout_slice"] = list(module.readout_kernel.shape)
+            grads = tensor_lib.gather_tensors({name: p.grad for name, p in module.named_parameters()}, mesh)
+            state = tensor_lib.gather_state_dict(module, mesh)
+            replicated = [t for name, t in module.state_dict().items()
+                          if tensor_lib.param_sharding_rules(name, t.shape) is None]
+            sums = torch.stack([t.detach().double().sum() for t in replicated])
+            high = mesh_lib.all_reduce(mesh, sums.clone(), "max", over="model")
+            low = mesh_lib.all_reduce(mesh, sums.clone(), "min", over="model")
+            step["replicas_identical"] = bool(torch.equal(high, low))
+            if reference is not None:
+                step.update(compare_with_reference(grads, state, loss, reference, dtype))
+            del grads, state
+            if dtype == "float32":
+                step["sharded_state"] = tp_checkpoints(model, mesh, work, batch)
+            result[dtype] = step
+            del model, module
+            gc.collect()
+            torch.cuda.empty_cache()
+        (work / f"tp_rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_tp(record: dict, work: Path) -> dict:
+    """Phases 18a and 18b: two ranks of a model axis on this card against
+    one card's step; the sharded state, its resume, and the TP-written
+    checkpoint on one card. Returns each rank's launches."""
+    import torch
+
+    from sensorium_tpu_torch.cli.train import free_port
+    from sensorium_tpu_torch.engine.model import load_model
+
+    tp_dir = work / "tp"
+    tp_dir.mkdir()
+    start = time.perf_counter()
+    script = str(Path(__file__).resolve())
+    run_children([[sys.executable, script, "--mesh-child", "tp_reference", "--out", str(tp_dir)]], tp_dir,
+                 "tp reference")
+    reference_s = time.perf_counter() - start
+    port = free_port()
+    run_children([[sys.executable, script, "--mesh-child", f"tp_rank{rank}", "--port", str(port), "--out",
+                   str(tp_dir)] for rank in range(TP_WORLD)], tp_dir, "tp ranks")
+    ranks = [json.loads((tp_dir / f"tp_rank{rank}.json").read_text()) for rank in range(TP_WORLD)]
+    (tp_dir / "tp_reference.pt").unlink()
+    smi = nvidia_smi_line()
+    for result in ranks:
+        print(f"tp: rank {result['rank']} of {result['shape']}: gloo on CUDA tensors {result['collectives']}",
+              flush=True)
+        if not all(result["collectives"].values()):
+            fail(f"tp: gloo does not take a CUDA tensor for {result['collectives']}")
+    per_step = expected_train_launches()
+    for dtype in MESH_DTYPES:
+        for rank in ranks:
+            step = rank[dtype]
+            print(f"tp: {dtype}: rank {rank['rank']}: loss {step['loss']:.6f}, step {step['step_seconds']:.2f} s "
+                  f"(the first, with the gloo collectives; two ranks share this card: not a TP speed), readout "
+                  f"slice {step['readout_slice']}, peak memory {step['peak_gb']:.2f} GB against one card's "
+                  f"{ranks[0][dtype]['reference_peak_gb']:.2f} GB at {TP_BATCH} rows ({smi}), launches "
+                  f"{step['launches']}", flush=True)
+        first = ranks[0][dtype]
+        print(f"tp: {dtype}: one card at batch {TP_BATCH}: loss {first['reference_loss']:.6f}; the two ranks "
+              f"against it, as fractions of their bounds: the loss {first['loss_ratio']:.3g} "
+              f"({first['loss_rel_err']:.3g} relative), the worst gradient {first['grad_worst'][1]} "
+              f"{first['grad_worst'][0]:.3g}, the worst weight or BN statistic {first['state_worst'][1]} "
+              f"{first['state_worst'][0]:.3g}; replicated weights identical "
+              f"{[r[dtype]['replicas_identical'] for r in ranks]}", flush=True)
+        if "bf16_error" in first:
+            print(f"tp: {dtype}: the two ranks against one card over its own bf16 error: median "
+                  f"{first['ranks_over_bf16_error']['median']:.3g}, largest "
+                  f"{first['ranks_over_bf16_error']['max']:.3g}", flush=True)
+        if not all(r[dtype]["replicas_identical"] for r in ranks):
+            fail(f"tp: {dtype}: the two ranks' replicated weights differ after the step")
+        for key in ("loss_ratio", "grad_worst", "state_worst"):
+            value = first[key] if key == "loss_ratio" else first[key][0]
+            if not value <= 1.0:
+                fail(f"tp: {dtype}: the two-rank step exceeds its bound: {key} {first[key]}")
+    for rank in ranks:
+        expected = {key: per_step.get(key, 0) for key in rank["bfloat16"]["launches"]}
+        if rank["bfloat16"]["launches"] != expected:
+            fail(f"tp: rank {rank['rank']} launched {rank['bfloat16']['launches']} in its step, expected {expected}")
+
+    # 18b: the sharded state resumed bitwise, and the TP-written checkpoint on one card.
+    for rank in ranks:
+        sharded = rank["float32"]["sharded_state"]
+        print(f"tp: float32: rank {rank['rank']}: train_state.orbax {sharded['bytes'] / 1e9:.3f} GB, saved in "
+              f"{sharded['save_seconds']:.2f} s, loaded in {sharded['load_seconds']:.2f} s; the model checkpoint "
+              f"gathered and saved in {sharded['save_model_seconds']:.2f} s; restored bitwise "
+              f"{sharded['restored_bitwise']}; {TP_CONTINUED_STEPS} more steps {sharded['losses']}, bitwise "
+              f"{sharded['continued_bitwise']}", flush=True)
+        if not (sharded["restored_bitwise"] and sharded["continued_bitwise"]):
+            fail(f"tp: rank {rank['rank']}: the resumed sharded state is not the uninterrupted run's: {sharded}")
+    one_card = load_model(tp_dir / "tp_model.ckpt", device="cuda")
+    expected = torch.load(tp_dir / "tp_prediction.pt")
+    got = one_card.predict(synthetic_batch(TP_BATCH).inputs[:TP_PREDICT_ROWS], mouse_index=0).cpu()
+    rel = float((got - expected).abs().max() / expected.abs().max())
+    print(f"tp: the TP-written checkpoint on one card: {TP_PREDICT_ROWS} rows of mouse 0 within {rel:.3g} of the "
+          f"TP forward's largest value (tolerance {CPU_REL_TOL})", flush=True)
+    if got.shape != expected.shape or not rel <= CPU_REL_TOL:
+        fail(f"tp: one card's forward of the TP-written checkpoint differs by {rel} ({tuple(got.shape)})")
+    del one_card
+    record["mesh_tp"] = {"ranks": ranks, "reference_seconds": reference_s, "one_card_rel_err": rel,
+                         "seconds": time.perf_counter() - start}
+    return {f"tp_rank{r['rank']}": r["bfloat16"]["launches"] for r in ranks}
+
+
+def mesh_tp_cards(record: dict, fit_root: Path, work: Path) -> None:
+    """Phase 18c, with two cards or more: CLI_TP_FP32's fold through
+    ``cli.train --mesh data,model --sharded-checkpoint`` over every card,
+    its logs held at 16b's tolerances to the same fold on one card
+    (``--no-mesh``), both in fp32: in bf16 a forward's roundings depend on
+    its size, which the data axis divides (PERF.md, phase 16c). Then the
+    SIGTERM run with those flags -> 75 -> ``--resume`` -> 0. Reads the
+    configs phase 15 wrote under ``work``."""
+    import os
+    from importlib.machinery import SourceFileLoader
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"tp cards: 18c did not run: {cards} card visible (it needs 2 or more)", flush=True)
+        record["mesh_tp_cards"] = {"ran": False, "cards": cards}
+        return
+    flags = ["--mesh", "data,model", "--sharded-checkpoint"]
+    out_path = work / "mesh_tp_child.out"
+    configs_dir = work / "train_cli_configs"
+    config = SourceFileLoader(CLI_TP_FP32, str(configs_dir / f"{CLI_TP_FP32}.py")).load_module().config
+    steps = sum(config["num_epochs"]) * cli_train_steps(config)
+    folds = {}
+    for label, data_name, run_flags in (("one card", "train_cli_tp_one", ["--no-mesh"]),
+                                        ("model axis", "train_cli_tp", flags)):
+        data_dir = work / data_name
+        data_dir.mkdir()
+        (data_dir / "sensorium_all_2023").symlink_to(fit_root.resolve(), target_is_directory=True)
+        env = {**os.environ, "SENSORIUM_DATA_DIR": str(data_dir),
+               "SENSORIUM_CONFIGS_DIR": str(configs_dir), "SENSORIUM_FOLD_ASSIGNMENT": "trial",
+               "PYTHONPATH": str(REPO)}
+        code, _, wall, _ = run_cli_child([sys.executable, "-m", "sensorium_tpu_torch.cli.train", "-e", CLI_TP_FP32,
+                                          "-f", "0", *run_flags], env, out_path)
+        output = out_path.read_text()
+        fold = data_dir / "experiments" / CLI_TP_FP32 / "fold_0"
+        if code != 0 or (run_flags == flags and ("'model': 2}" not in output
+                                                 or not (fold / "train_state.orbax" / "meta.json").is_file())):
+            fail(f"tp cards: cli.train {' '.join(run_flags)} ({label}) gave exit code {code}:\n{output[-3000:]}")
+        records = read_cli_logs(fold)
+        rate = steps / sum(r["epoch_time"] for r in records)
+        folds[label] = {"wall_seconds": wall, "steps_per_second": rate, "epochs": records}
+        print(f"tp cards: the fp32 smoke_001 fold, cli.train {' '.join(run_flags)} ({label}): {wall:.2f} s wall, "
+              f"{rate:.3f} steps/s over its epochs", flush=True)
+    worst = close_logs("tp cards", folds["model axis"]["epochs"], folds["one card"]["epochs"])
+    corr = max(abs(a[k] - b[k]) for a, b in zip(folds["model axis"]["epochs"], folds["one card"]["epochs"])
+               for k in b if k.startswith("val_corr"))
+    print(f"tp cards: over {cards} cards against one card in fp32: largest loss difference {worst:.3g} relative "
+          f"(tolerance {MESH_LOG_RTOL}), val_corr {corr:.3g} (tolerance {MESH_CORR_ATOL})", flush=True)
+
+    # The SIGTERM run (bf16) in the model axis run's data directory and environment.
+    sigterm_fold = data_dir / "experiments" / CLI_SIGTERM / "fold_0"
+    command = [sys.executable, "-m", "sensorium_tpu_torch.cli.train", "-e", CLI_SIGTERM, "-f", "0", *flags]
+    code, _, sigterm_wall, _ = run_cli_child(command, env, out_path, until=lambda: (
+        sigterm_fold / "log.jsonl").exists() and '"stage": "warmup"' in (sigterm_fold / "log.jsonl").read_text())
+    if code != 75 or not (sigterm_fold / "train_state.orbax" / "meta.json").is_file():
+        fail(f"tp cards: SIGTERM gave exit code {code}, expected 75 and a train_state.orbax:\n"
+             f"{out_path.read_text()[-3000:]}")
+    code, _, resume_wall, _ = run_cli_child([*command, "--resume"], env, out_path)
+    epochs = [r["epoch"] for r in read_cli_logs(sigterm_fold)]
+    if code != 0 or epochs != list(range(2)) or "Resumed from epoch" not in out_path.read_text():
+        fail(f"tp cards: the resume gave exit code {code}, epochs {epochs}:\n{out_path.read_text()[-3000:]}")
+    print(f"tp cards: SIGTERM -> 75 in {sigterm_wall:.2f} s, --resume from train_state.orbax -> 0 in "
+          f"{resume_wall:.2f} s, epochs logged {epochs}", flush=True)
+    record["mesh_tp_cards"] = {"ran": True, "cards": cards, "folds": folds, "max_loss_rel_diff": worst,
+                               "max_corr_diff": corr, "sigterm_seconds": sigterm_wall,
+                               "resume_seconds": resume_wall}
+
+
+def tp_cards_only(record: dict, out_dir: Path) -> None:
+    """``--tp-cards``: phase 18c alone on phase 11's dataset and phase 15's
+    configs, for a call with two cards or more; fails with fewer."""
+    import os
+
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        fail(f"--tp-cards needs two cards or more; {torch.cuda.device_count()} visible")
+    root = out_dir / "fit_data"
+    write_fit_dataset(root)
+    os.environ["SENSORIUM_FOLD_ASSIGNMENT"] = "trial"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            write_cli_configs(Path(work) / "train_cli_configs")
+            mesh_tp_cards(record, root, Path(work))
+    finally:
+        shutil.rmtree(root)
+
+
 def scan_body_calls(length: int) -> int:
     """How many times this torch's eager ``scan`` runs its body over
     ``length`` elements: ``length``, or one more where it runs the body on
@@ -2606,7 +2936,7 @@ def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused
     """One entry per kernel: sums over the calls of one flagship training step
     (batch 32 x 16 frames, the shapes of a 32-window chunk forward), bf16.
     ``launches`` counts the timed train steps, ``launches_serve`` the counted
-    serving run, ``launches_<path>`` the runs of phases 12-17; the fused
+    serving run, ``launches_<path>`` the runs of phases 12-18; the fused
     kernel's launches are the dwbench run's."""
     replaces = {
         "dw_spatial_fwd": ("dw_conv.cu", "sensorium_tpu/ops/pallas_dw.py:115"),
@@ -2654,9 +2984,13 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
                         help="directory for chip_smoke.json and chip_smoke_trace.json")
-    parser.add_argument("--mesh-child", choices=["reference", *(f"rank{r}" for r in range(MESH_WORLD))],
-                        help=argparse.SUPPRESS)  # phase 16a's child processes, which write into --out
+    parser.add_argument("--mesh-child", choices=["reference", *(f"rank{r}" for r in range(MESH_WORLD)),
+                                                 "tp_reference", *(f"tp_rank{r}" for r in range(TP_WORLD))],
+                        help=argparse.SUPPRESS)  # phases 16a's and 18a's child processes, which write into --out
     parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-cards", action="store_true",
+                        help="run phase 18c alone (cli.train over a model axis of every card against one card, "
+                             "in fp32); fails with fewer than two cards")
     args = parser.parse_args()
     try:
         import torch
@@ -2669,8 +3003,14 @@ def main() -> int:
     if args.mesh_child == "reference":
         mesh_reference(args.out)
         return 0
+    if args.mesh_child == "tp_reference":
+        mesh_reference(args.out, TP_BATCH, "tp_reference.pt")
+        return 0
     if args.mesh_child:
-        mesh_rank(args.out, int(args.mesh_child.removeprefix("rank")), args.port)
+        if args.mesh_child.startswith("tp_rank"):
+            tp_rank(args.out, int(args.mesh_child.removeprefix("tp_rank")), args.port)
+        else:
+            mesh_rank(args.out, int(args.mesh_child.removeprefix("rank")), args.port)
         return 0
     torch.backends.cudnn.allow_tf32 = False  # every fp32 comparison runs without TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2697,6 +3037,14 @@ def main() -> int:
     record["build_seconds"] = build_s
 
     args.out.mkdir(parents=True, exist_ok=True)
+    if args.tp_cards:
+        tp_cards_only(record, args.out)
+        (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+        print(f"device: {smi}")
+        print("tp cards: only phase 18c ran (--tp-cards)", flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     rows = check_kernels(peaks)
     record["kernels"] = rows
     serve_launches = serve(record, args.out)
@@ -2731,6 +3079,10 @@ def main() -> int:
         path_launches["export"] = serving_export(record, work / EXPORT_CHECKPOINT, work)
         record["serving_export"]["phase_seconds"] = time.perf_counter() - start
         print(f"serving_export: phase took {record['serving_export']['phase_seconds']:.1f} s", flush=True)
+        start = time.perf_counter()
+        path_launches.update(mesh_tp(record, work))
+        mesh_tp_cards(record, fit_root, work)
+        print(f"tp: 18a, 18b and 18c took {time.perf_counter() - start:.1f} s", flush=True)
     shutil.rmtree(fit_root)  # made anew from the seed by every run
 
     summary = kernel_summary(rows + backward_rows, train_launches, serve_launches, fused_rows, fused_launches,

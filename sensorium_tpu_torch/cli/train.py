@@ -1,7 +1,8 @@
 """Train an experiment's CV folds.
 
     python -m sensorium_tpu_torch.cli.train -e EXPERIMENT [-f all|0|0,3] [--resume] [--device cuda]
-        [--mesh data|replica,data | --no-mesh] [--multihost auto|COORD,N,ID] [--fold-procs N|auto [--pin-chips]]
+        [--mesh data|data,model|replica,data|replica,data,model | --no-mesh] [--sharded-checkpoint]
+        [--multihost auto|COORD,N,ID] [--fold-procs N|auto [--pin-chips]]
 
 Counterpart of ``sensorium_tpu/cli/train.py``. The experiment config is
 executable Python with a module-level ``config``
@@ -15,7 +16,10 @@ fold out:
   schedule of the update count over every stage;
 * ``--resume`` continues a fold from its ``train_state.ckpt`` (weights,
   EMA, optimizer moments, generator, update count), skipping the stages
-  already done;
+  already done; with ``--sharded-checkpoint`` the state is the directory
+  ``train_state.orbax``, which every process writes its own slices into
+  (``engine/checkpoint.py``). ``--resume`` reads whichever of the two it
+  finds, the flag's first;
 * a SIGTERM saves the train state and exits with code 75 (EX_TEMPFAIL);
   rerun with ``--resume`` to go on;
 * ``--trace DIR`` profiles the first fold, ``--debug-nans`` raises at the
@@ -25,25 +29,27 @@ Where a fold runs:
 
 * ``--mesh data`` (the default) or ``--mesh replica,data``: data-parallel
   over every visible card, the global batch spread over them
-  (``parallel/mesh.py``). With one card, or ``--device`` naming one, there
-  is no mesh, as JAX builds none for one device; ``--no-mesh`` asks for one
-  card. The launcher starts one rank a card (``torch.multiprocessing``,
-  spawn), makes no CUDA context itself, forwards SIGTERM and SIGINT to the
-  ranks and exits 75 if a rank did, 1 if one failed.
+  (``parallel/mesh.py``). ``--mesh data,model`` and ``--mesh
+  replica,data,model`` add a ``model`` axis of 2 where the card count (a
+  host's, for ``replica``) is even, else 1, as the JAX CLI decides: each
+  pair of adjacent ranks holds one batch shard and half of the cortex and
+  readout weights (``parallel/tensor.py``). Under a model axis every
+  process joins each checkpoint save (a gather; the first process writes
+  the file). With one card, or ``--device`` naming one, there is no mesh,
+  as JAX builds none for one device; ``--no-mesh`` asks for one card. The
+  launcher starts one rank a card (``torch.multiprocessing``, spawn), makes
+  no CUDA context itself, forwards SIGTERM and SIGINT to the ranks and
+  exits 75 if a rank did, 1 if one failed.
 * ``--multihost SPEC``: one launcher a host, each starting a rank a card;
   ``COORD,N,ID`` makes host ``ID``'s ranks global ranks ``ID * cards +
   local rank`` (``parallel/multihost.py``); ``auto`` takes torchrun's
   variables, one rank a process. The mesh path runs even at world size 1.
   The experiment directory must be on storage every host shares: the first
-  process writes every file, and ``--resume`` checks that all read the
-  same epoch.
+  process writes every file (each process its slices of a ``.orbax``
+  state), and ``--resume`` checks that all read the same epoch.
 * ``--fold-procs N|auto [--pin-chips]``: up to N folds at once, one
   single-card ``cli.train`` subprocess a fold; ``--pin-chips`` shows slot i
   only card i (``CUDA_VISIBLE_DEVICES``); ``auto`` is the visible card count.
-
-Tensor parallelism (``--mesh data,model``, ``--mesh replica,data,model``)
-and the sharded train state (``--sharded-checkpoint``) are not ported
-(ROADMAP.md §A.4b); those flags are refused.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from importlib.machinery import SourceFileLoader
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from sensorium_tpu_torch import constants
 from sensorium_tpu_torch.data.datasets import TrainMiceDataset, ValMiceDataset
@@ -84,9 +91,8 @@ from sensorium_tpu_torch.utils.misc import get_best_model_path, get_lr
 from sensorium_tpu_torch.utils.profiling import debug_nans, trace
 
 STATE_NAME = "train_state.ckpt"
-NOT_PORTED = "is not ported yet (ROADMAP.md §A.4b)"
-MESHES = ("data", "replica,data")
-TENSOR_PARALLEL_MESHES = ("data,model", "replica,data,model")
+SHARDED_STATE_NAME = "train_state.orbax"
+MESHES = ("data", "data,model", "replica,data", "replica,data,model")
 PATHS = ("data_dir", "sensorium_dir", "experiments_dir", "predictions_dir", "configs_dir")
 
 
@@ -95,14 +101,16 @@ def parse_arguments(argv=None):
     parser.add_argument("-e", "--experiment", required=True, type=str)
     parser.add_argument("-f", "--folds", default="all", type=str, help="'all' or a comma list of fold numbers")
     parser.add_argument("--mesh", default="data", type=str,
-                        help="'data' (data parallel over every visible card) or 'replica,data' (hosts x cards); "
-                             f"the 'model' axis {NOT_PORTED}")
+                        help="'data' (data parallel over every visible card), 'data,model' (data parallel and a "
+                             "2-way model axis over adjacent cards), or 'replica,data[,model]' (hosts x cards)")
     parser.add_argument("--no-mesh", action="store_true", help="one card, no mesh")
     parser.add_argument("--resume", action="store_true", help="resume each fold from its train_state.ckpt")
     parser.add_argument("--async-checkpoint", action="store_true",
                         help="write checkpoints in a background thread (the next epoch starts while the "
                              "previous save goes to disk)")
-    parser.add_argument("--sharded-checkpoint", action="store_true", help=f"refused: the sharded state {NOT_PORTED}")
+    parser.add_argument("--sharded-checkpoint", action="store_true",
+                        help="resume state as the directory train_state.orbax: every process writes its own "
+                             "slices, and the load reads them straight into place")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--debug-nans", action="store_true",
                         help="raise at the first op that produces a NaN, with its name")
@@ -118,12 +126,8 @@ def parse_arguments(argv=None):
                              "'COORD_ADDR:PORT,NUM_PROCESSES,PROCESS_ID'; run the same command on every host")
     parser.add_argument("--device", default="cuda", type=str, help="a torch device: 'cuda', 'cuda:1' or 'cpu'")
     args = parser.parse_args(argv)
-    if args.mesh in TENSOR_PARALLEL_MESHES:
-        parser.error(f"--mesh {args.mesh}: tensor parallelism {NOT_PORTED}")
     if args.mesh not in MESHES:
-        parser.error(f"--mesh {args.mesh!r}: expected 'data' or 'replica,data'")
-    if args.sharded_checkpoint:
-        parser.error(f"--sharded-checkpoint: the sharded (orbax) train state {NOT_PORTED}")
+        parser.error(f"--mesh {args.mesh!r}: expected 'data' or 'replica,data', either with ',model'")
     if args.fold_procs != "auto" and not args.fold_procs.isdigit():
         parser.error(f"--fold-procs {args.fold_procs!r}: expected a count or 'auto'")
     return args
@@ -191,6 +195,7 @@ def run_parallel_folds(args, folds_splits: list[str], experiment_dir: Path, fold
                        "--device", args.device]
                 cmd += [flag for flag, given in (("--resume", args.resume),
                                                  ("--async-checkpoint", args.async_checkpoint),
+                                                 ("--sharded-checkpoint", args.sharded_checkpoint),
                                                  ("--debug-nans", args.debug_nans)) if given]
                 if args.trace and fold == folds_splits[0]:
                     cmd += ["--trace", str(Path(args.trace) / fold)]
@@ -256,10 +261,13 @@ def train_mouse(
     async_checkpoint: bool = False,
     device: str = "cuda",
     mesh: mesh_lib.Mesh | None = None,
+    sharded_checkpoint: bool = False,
 ) -> MouseModel:
     """Train one fold: ``val_splits`` held out, checkpoints and logs in
     ``save_dir``. With a ``mesh`` each process loads its rows of every
-    batch and the first process writes the files."""
+    batch and the first process writes the files; every process joins the
+    saves that are collectives (under a model axis, or with
+    ``sharded_checkpoint``: the resume state ``train_state.orbax``)."""
     config = copy.deepcopy(config)
     argus_params = config["argus_params"]
 
@@ -293,7 +301,7 @@ def train_mouse(
     print("Val dataset len:", len(val_dataset))
 
     num_threads = config.get("num_dataloader_workers", 8)
-    shard = None if mesh is None else (mesh.index, mesh_lib.data_extent(mesh))
+    shard = None if mesh is None else (mesh.data_index, mesh_lib.data_extent(mesh))
     train_loader = MiceDataLoader(train_dataset, batch_size=config["batch_size"], shuffle=True, seed=seed,
                                   num_threads=num_threads, drop_last=True, shard=shard,
                                   microbatches=argus_params.get("iter_size", 1))
@@ -317,17 +325,23 @@ def train_mouse(
         model.init_from_checkpoint(config["init_from"])
         print("Warm-start init from", config["init_from"])
     start_epoch = 0
-    state_path = save_dir / STATE_NAME
+    state_name = SHARDED_STATE_NAME if sharded_checkpoint else STATE_NAME
+    state_path = save_dir / state_name
     if resume:
         epoch = -2  # no train state here
-        if state_path.exists():
-            epoch = int(model.load_train_state(state_path).get("epoch", -1))
+        # Either format may be there: a run may switch formats between resumes.
+        found = next((save_dir / name for name in (state_name, SHARDED_STATE_NAME, STATE_NAME)
+                      if (save_dir / name).exists()), None)
+        if found is not None:
+            epoch = int(model.load_train_state(found).get("epoch", -1))
         check_same_epoch(mesh, epoch)
         if epoch >= -1:
             start_epoch = epoch + 1
             print(f"Resumed from epoch {start_epoch}")
 
-    is_primary = mesh is None or mesh.index == 0
+    is_primary = model.writes_files
+    # Saves that are collectives: every process joins them.
+    collective_saves = model.tensor_parallel or sharded_checkpoint
     if is_primary:
         save_dir.mkdir(parents=True, exist_ok=True)
     # One handler spans all stages: a signal latched near a stage boundary
@@ -342,10 +356,10 @@ def train_mouse(
                     LoggingToCSV(save_dir / "log.csv", append=True),
                     LoggingToJSONL(save_dir / "log.jsonl", append=True),
                 ]
-            if stage != "warmup" and is_primary:
+            if stage != "warmup" and (is_primary or collective_saves):
                 callbacks.append(Checkpoint(save_dir, file_format="model-{epoch:03d}-{val_corr:.6f}.ckpt",
                                             max_saves=1, background=async_checkpoint,
-                                            train_state_name=STATE_NAME))
+                                            train_state_name=state_name))
             # Cumulative: a third stage starts after all earlier stages'
             # epochs, so its epochs keep their own numbers on resume.
             stage_start = stage_offset
@@ -363,7 +377,7 @@ def train_mouse(
                 stage=stage,
                 start_epoch=stage_start + skip,
                 preemption=preemption,
-                preemption_save_path=state_path if is_primary else None,
+                preemption_save_path=state_path if is_primary or collective_saves else None,
             )
     # A background save still in flight lands before the fold counts as done:
     # prediction reads the best checkpoint next.
@@ -378,7 +392,7 @@ def check_same_epoch(mesh: mesh_lib.Mesh | None, epoch: int) -> None:
     if mesh is None or not mesh.distributed:
         return
     extremes = torch.tensor([epoch, -epoch], dtype=torch.float64, device=mesh.device)
-    mesh_lib.all_reduce(mesh, extremes, "max")
+    mesh_lib.all_reduce(mesh, extremes, "max", over="all")
     high, low = int(extremes[0]), -int(extremes[1])
     if high != low:
         raise RuntimeError(f"--resume sees inconsistent train_state.ckpt across processes (epochs {low} to {high}, "
@@ -387,8 +401,16 @@ def check_same_epoch(mesh: mesh_lib.Mesh | None, epoch: int) -> None:
 
 
 def build_mesh(args) -> mesh_lib.Mesh:
-    """The training mesh over the initialized process group, one card a process."""
-    return mesh_lib.create_hybrid_mesh() if args.mesh.startswith("replica") else mesh_lib.create_mesh()
+    """The training mesh over the initialized process group, one card a
+    process. A ``model`` axis asked for is 2 where the processes (a host's,
+    for ``replica``) are even, else 1: ``sensorium_tpu/cli/train.py``'s rule."""
+    world = dist.get_world_size()
+    if args.mesh.startswith("replica"):
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        num_model = 2 if "model" in args.mesh and per_host % 2 == 0 else 1
+        return mesh_lib.create_hybrid_mesh(num_model=num_model)
+    num_model = 2 if "model" in args.mesh and world % 2 == 0 else 1
+    return mesh_lib.create_mesh(num_model=num_model)
 
 
 def train_folds(args, config: dict, folds_splits: list[str], mesh: mesh_lib.Mesh | None = None) -> None:
@@ -405,7 +427,7 @@ def train_folds(args, config: dict, folds_splits: list[str], mesh: mesh_lib.Mesh
                 with trace_ctx:
                     train_mouse(config, experiment_dir / fold_split, train_splits, val_splits, seed=args.seed,
                                 resume=args.resume, async_checkpoint=args.async_checkpoint, device=args.device,
-                                mesh=mesh)
+                                mesh=mesh, sharded_checkpoint=args.sharded_checkpoint)
             except TrainingPreempted as preempted:
                 print(f"Preempted: {preempted}. Rerun with --resume to continue.")
                 raise SystemExit(75)  # EX_TEMPFAIL

@@ -172,6 +172,10 @@ class Checkpoint(Callback):
     (min for a loss). With ``save_train_state`` it also writes the resume
     state to ``train_state_name``; ``save_model=False`` writes only that.
     ``background=True`` moves serialization and the writes off the loop.
+    On a process of a mesh that writes no single-file checkpoint (not the
+    first process: ``MouseModel.writes_files``) it only joins the saves that
+    are collectives (a gather under a model axis, a ``.orbax`` state) and
+    keeps no files.
     """
 
     def __init__(
@@ -206,19 +210,22 @@ class Checkpoint(Callback):
         if self.monitor not in state.metrics:
             return
         score = float(state.metrics[self.monitor])
-        self.save_dir.mkdir(parents=True, exist_ok=True)
+        writes = getattr(state.model, "writes_files", True)
+        if writes:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
         fields = {"epoch": state.global_epoch, self.monitor: score, **state.metrics}
         file_path = self.save_dir / self.file_format.format(**fields)
         if self.save_model:
             state.model.save(file_path, background=self.background)
-            state.logger.info(f"Model saved to '{file_path}'")
+            if writes:
+                state.logger.info(f"Model saved to '{file_path}'")
         if self.save_train_state:
             state.model.save_train_state(
                 self.save_dir / self.train_state_name,
                 extra={"epoch": state.global_epoch, self.monitor: score},
                 background=self.background,
             )
-        if not self.save_model:
+        if not self.save_model or not writes:
             return
         self._saved.append((score, file_path))
         self._saved.sort(key=lambda item: item[0], reverse=self.better == "max")

@@ -8,7 +8,18 @@ Two kinds, both msgpack written byte for byte as flax writes them
   and the eval (EMA) weights as ``{"params": ..., "batch_stats": ...}``
   nested in the JAX tree's names. Named ``model-{epoch:03d}-{score:.6f}.ckpt``
   so that ``utils.misc.get_best_model_path`` reads the score;
-* a train state, ``{version, params, state, extra}``, for resuming a run.
+* a train state, ``{version, params, state, extra}``, for resuming a run;
+* a sharded train state, a directory whose name ends in ``.orbax`` (the
+  JAX package's name for its sharded format): ``meta.json`` holds JAX's
+  keys (``version``, ``params``, ``extra``) and ``state/`` is written by
+  ``torch.distributed.checkpoint``. Every process writes its own tensors,
+  nothing is gathered, and a tensor that several processes hold under one
+  key (a replicated one) is written once. The tensors of a model axis's
+  slice k of n are keyed ``<name>@model<k>of<n>``, so the processes that
+  hold one slice share a key and the slices stay apart. The load reads
+  each process's keys straight into its live tensors. The JAX package's
+  own ``.orbax`` directories (orbax) are not read here, nor the port's
+  there: the msgpack train state is the format both packages share.
 
 Writes are atomic: a ``.tmp`` file, fsync, then ``os.replace``, so a killed
 process never leaves a truncated checkpoint. A background save moves only
@@ -21,9 +32,10 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 from pathlib import Path
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 import torch
@@ -31,6 +43,9 @@ import torch
 from sensorium_tpu_torch.utils.msgpack import msgpack_pieces, msgpack_restore
 
 MODEL_CHECKPOINT_VERSION = 1
+DCP_METADATA = ".metadata"  # the file torch.distributed.checkpoint writes last into a checkpoint directory
+SLICE_KEY = "{key}@model{index}of{count}"  # a sharded train state's key of a model axis's slice
+SLICE_SUFFIX = re.compile(r"@model(\d+)of(\d+)$")
 
 
 def to_host(tree):
@@ -101,9 +116,13 @@ def flush_pending_saves() -> None:
 
 
 def _atomic_write(path: Path, payload: dict) -> None:
+    _atomic_write_pieces(path, msgpack_pieces(payload))
+
+
+def _atomic_write_pieces(path: Path, pieces: Iterable[bytes]) -> None:
     tmp_path = path.with_name(path.name + ".tmp")
     with open(tmp_path, "wb") as handle:
-        for piece in msgpack_pieces(payload):
+        for piece in pieces:
             handle.write(piece)
         handle.flush()
         os.fsync(handle.fileno())
@@ -167,6 +186,66 @@ def load_train_state(path) -> tuple[dict, dict]:
     if payload.get("version") != MODEL_CHECKPOINT_VERSION:
         raise ValueError(f"Unsupported checkpoint version in {path}")
     return payload["state"], payload.get("extra", {})
+
+
+def save_train_state_sharded(dir_path, tensors: dict, argus_params: dict, extra: dict | None = None,
+                             process_group=None, primary: bool = True) -> None:
+    """Write a sharded resume checkpoint: ``tensors`` (flat names -> this
+    process's tensors) into ``<dir>/state`` through
+    ``torch.distributed.checkpoint``, then ``<dir>/meta.json`` from the
+    ``primary`` process. Every process of ``process_group`` must call it
+    (None: this process alone)."""
+    import torch.distributed.checkpoint as dcp
+
+    flush_pending_saves()
+    dir_path = Path(dir_path)
+    (dir_path / "state").mkdir(parents=True, exist_ok=True)
+    dcp.save(tensors, checkpoint_id=dir_path / "state", process_group=process_group, no_dist=process_group is None)
+    if primary:
+        meta = {"version": MODEL_CHECKPOINT_VERSION, "params": json.loads(json.dumps(argus_params)),
+                "extra": extra or {}}
+        _atomic_write_pieces(dir_path / "meta.json", [json.dumps(meta).encode()])
+
+
+def sharded_train_state_keys(dir_path) -> tuple[dict, dict]:
+    """``(meta, {key: (shape, dtype)})`` of a sharded resume checkpoint.
+    Raises ``ValueError`` for a directory that ``torch.distributed.checkpoint``
+    did not write (for example one of the JAX package's, written by orbax)
+    or a version this code does not read."""
+    from torch.distributed.checkpoint import FileSystemReader
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    dir_path = Path(dir_path)
+    if not (dir_path / "state" / DCP_METADATA).is_file():
+        raise ValueError(f"{dir_path} holds no torch.distributed.checkpoint metadata (state/{DCP_METADATA}): "
+                         "it is not a sharded train state of this package (the JAX package's .orbax directories "
+                         "are orbax's; the msgpack train state is the format both packages read)")
+    meta = json.loads((dir_path / "meta.json").read_text())
+    if meta.get("version") != MODEL_CHECKPOINT_VERSION:
+        raise ValueError(f"Unsupported checkpoint version in {dir_path}")
+    metadata = FileSystemReader(dir_path / "state").read_metadata()
+    keys = {key: (tuple(item.size), item.properties.dtype) for key, item in metadata.state_dict_metadata.items()
+            if isinstance(item, TensorStorageMetadata)}
+    return meta, keys
+
+
+def model_axis_of(keys) -> int:
+    """The ``model`` axis size a sharded train state was written over (1: no slices)."""
+    counts = {int(m.group(2)) for m in map(SLICE_SUFFIX.search, keys) if m}
+    if len(counts) > 1:
+        raise ValueError(f"a sharded train state with slices over model axes of sizes {sorted(counts)}")
+    return counts.pop() if counts else 1
+
+
+def load_train_state_sharded(dir_path, tensors: dict, process_group=None) -> None:
+    """Read a sharded resume checkpoint into ``tensors`` (names -> tensors to
+    fill in place, each with its key's shape); every process of
+    ``process_group`` must call it (None: this process alone)."""
+    import torch.distributed.checkpoint as dcp
+
+    flush_pending_saves()
+    dcp.load(tensors, checkpoint_id=Path(dir_path) / "state", process_group=process_group,
+             no_dist=process_group is None)
 
 
 def as_tensor(value) -> torch.Tensor:

@@ -20,8 +20,9 @@ where ``target > 1`` with ``full=True``.
 
 With a data-parallel ``mesh`` each process holds its rows of the global
 batch, and the weight sum (and the distillation's count of filled cells) is
-the global batch's, reduced over the mesh: each process's loss is then its
-share of the global loss, and the shares add up to it, as in JAX.
+the global batch's, reduced over the mesh's data group (the processes of a
+model axis hold the same rows and are not summed): each process's loss is
+then its share of the global loss, and the shares add up to it, as in JAX.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ the dropout generator, which JAX does not share.
     model.save("model-000-0.123456.ckpt")      # the eval (EMA) weights and the config
     model.save_train_state("train_state.ckpt", extra={"epoch": 0})
     model.load_train_state("train_state.ckpt") # into a model built from the same config
+    model.save_train_state("train_state.orbax") # the sharded format: a directory, every process writes
     restored = load_model("model-000-0.123456.ckpt", device="cuda")
 
 Data parallelism: ``MouseModel(argus_params, mesh=mesh)`` (a
@@ -28,8 +29,25 @@ process's rows (a loader built with ``shard=`` hands them over already):
 a train batch that does not divide over the mesh raises, a val batch is
 padded with zero-weight rows. Losses, gradients and the metric sums are
 the global batch's. In ``fit`` the processes agree on a preemption signal
-(an ``all_reduce`` of the flag at each check point), so that none of them
-is left waiting in a collective.
+(an ``all_reduce`` of the flag over every process at each check point), so
+that none of them is left waiting in a collective. Over a process group
+only the first process writes a single-file checkpoint.
+
+Tensor parallelism: with a ``model`` axis above 1 (``tensor_parallel``, as
+the JAX package defines it) the state is placed as JAX's ``shard_state``
+places it (``parallel/tensor.py``): the module is built whole from the
+seed on every process, broadcast from the first, then sliced, so the live
+weights, the EMA copy and the optimizer's moments hold this process's
+slices of the cortex and readout weights; the BN statistics, the step and
+the generator are whole. Global-batch sums run over the data group, the
+preemption flag over every process. ``eval_variables``, ``save`` and the
+msgpack ``save_train_state`` gather the slices, so their files are byte for
+byte a one-process model's with the same values: a collective, which every
+process calls. ``load_train_state`` and ``load_model(mesh=)`` slice after
+reading. A ``.orbax`` path is the sharded train state
+(``engine/checkpoint.py``): every process writes and reads its own slices,
+a collective too. A distillation teacher stays whole on every process: it
+only runs an eval forward.
 """
 
 from __future__ import annotations
@@ -43,7 +61,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from sensorium_tpu_torch.compat.jax_weights import from_jax_variables, nest, to_jax_variables
+from sensorium_tpu_torch.compat.jax_weights import from_jax_variables, nest
 from sensorium_tpu_torch.data.datasets import MiceBatch
 from sensorium_tpu_torch.engine import checkpoint as ckpt
 from sensorium_tpu_torch.engine.callbacks import Callback, EngineState, build_logger
@@ -56,6 +74,7 @@ from sensorium_tpu_torch.engine.steps import make_predict_step, make_train_step,
 from sensorium_tpu_torch.models.dwiseneuro import neuron_validity_mask
 from sensorium_tpu_torch.models.registry import get_nn_module
 from sensorium_tpu_torch.parallel import mesh as mesh_lib
+from sensorium_tpu_torch.parallel import tensor as tensor_lib
 from sensorium_tpu_torch.utils.device import fetch_to_host, resolve_device
 
 
@@ -77,6 +96,7 @@ class MouseModel:
             device = mesh.device
         self.device = resolve_device(device)
         self.mesh = mesh
+        self.tensor_parallel = mesh_lib.tensor_parallel(mesh)
         self.params = params
         self.nn_name, self.nn_params = params["nn_module"]
         loss_name, loss_params = params.get("loss", ("mice_poisson", {}))
@@ -124,7 +144,8 @@ class MouseModel:
             self.state.ema_model = None
 
     def set_distill(self, teacher_module: nn.Module, ratio: float) -> None:
-        """Attach a frozen teacher whose predictions fill the unlabeled cells."""
+        """Attach a frozen teacher whose predictions fill the unlabeled cells
+        (a whole module, also under a model axis: it runs an eval forward)."""
         self.teacher_module = teacher_module.to(self.device).eval().requires_grad_(False)
         self.distill_ratio = float(ratio)
         self._train_step = None
@@ -140,6 +161,7 @@ class MouseModel:
         self.nn_module = get_nn_module(self.nn_name, self.nn_params, device=self.device,
                                        generator=torch.Generator().manual_seed(seed)).train()
         mesh_lib.replicate_tree(self.mesh, self.nn_module)
+        tensor_lib.shard_module(self.nn_module, self.mesh)
         self.schedule = learning_rate if callable(learning_rate) else None
         first_lr = learning_rate(0) if callable(learning_rate) else learning_rate
         opt_name, opt_params = self.optimizer_spec
@@ -162,11 +184,13 @@ class MouseModel:
         weights = from_jax_variables(nn_state["params"], nn_state.get("batch_stats", {}))
         current = self.state.model.state_dict()
         for name, value in weights.items():
-            if name in current and tuple(value.shape) != tuple(current[name].shape):
+            built = tensor_lib.full_shape(name, current[name].shape, self.mesh) if name in current else None
+            if built is not None and tuple(value.shape) != built:
                 raise ValueError(
                     f"init_from checkpoint leaf {name} has shape {tuple(value.shape)}, the built model "
-                    f"{tuple(current[name].shape)}: config/checkpoint architecture mismatch"
+                    f"{built}: config/checkpoint architecture mismatch"
                 )
+        weights = tensor_lib.scatter_state_dict(weights, self.mesh)
         self.state.model.load_state_dict(weights, strict=True)
         if self.state.ema_model is not None:
             # load_state_dict copies: the EMA keeps tensors of its own.
@@ -174,10 +198,12 @@ class MouseModel:
         self._replicate()
 
     def _replicate(self) -> None:
-        """The first process's weights (and EMA) on every process of the mesh."""
-        mesh_lib.replicate_tree(self.mesh, self.state.model)
+        """The weights (and EMA) of the first process of this process's data
+        group on every process of it: under a model axis each slice from the
+        first process that holds it, else the first process's."""
+        mesh_lib.replicate_tree(self.mesh, self.state.model, over="data")
         if self.state.ema_model is not None:
-            mesh_lib.replicate_tree(self.mesh, self.state.ema_model)
+            mesh_lib.replicate_tree(self.mesh, self.state.ema_model, over="data")
 
     # ---------------------------------------------------------------- steps
 
@@ -329,7 +355,7 @@ class MouseModel:
                 return preemption.triggered
             # Filled on the device: a copy from the host would wait for the step.
             flag = torch.full((1,), float(preemption.triggered), device=self.device)
-            pending.append(fetch_to_host(mesh_lib.all_reduce(self.mesh, flag, "max")))
+            pending.append(fetch_to_host(mesh_lib.all_reduce(self.mesh, flag, "max", over="all")))
             if not after_step:  # this check point's own flag; the signal stays latched, so it covers the older ones
                 host, copied = pending.pop()
                 pending.clear()
@@ -423,7 +449,7 @@ class MouseModel:
         shard = getattr(loader, "shard", None)
         if shard is None:
             return False
-        expected = None if self.mesh is None else (self.mesh.index, mesh_lib.data_extent(self.mesh))
+        expected = None if self.mesh is None else (self.mesh.data_index, mesh_lib.data_extent(self.mesh))
         if tuple(shard) != expected or getattr(loader, "microbatches", 1) != chunks:
             raise ValueError(f"the loader holds shard {tuple(shard)} of {getattr(loader, 'microbatches', 1)} "
                              f"microbatches a batch; this model needs shard {expected} of {chunks}")
@@ -437,26 +463,58 @@ class MouseModel:
 
     # ----------------------------------------------------------- checkpoint
 
+    @property
+    def writes_files(self) -> bool:
+        """Whether this process writes the single-file checkpoints: without a
+        process group, or as its first process."""
+        return self.mesh is None or not self.mesh.distributed or self.mesh.index == 0
+
+    def _gathers(self) -> bool:
+        """Whether this process takes part in gathering a single-file
+        checkpoint: the processes of the first model group under a model
+        axis (a collective over it); else the process that writes."""
+        return self.mesh.data_index == 0 if self.tensor_parallel else self.writes_files
+
+    def _variables(self, module: nn.Module) -> dict:
+        """``{"params", "batch_stats"}`` of ``module`` nested in the JAX
+        tree's names (``compat.to_jax_variables``), the sharded tensors
+        gathered whole."""
+        whole = tensor_lib.gather_state_dict(module, self.mesh)
+        params = {name for name, _ in module.named_parameters()}
+        return {"params": nest({n: v for n, v in whole.items() if n in params}),
+                "batch_stats": nest({n: v for n, v in whole.items() if n not in params})}
+
     def eval_variables(self) -> dict:
         """``{"params", "batch_stats"}`` of the eval (EMA) weights, nested in
-        the JAX tree's names (the tensors themselves)."""
-        return to_jax_variables(self.state.eval_model)
+        the JAX tree's names (the tensors themselves; under a model axis the
+        gathered ones, a collective over the model group)."""
+        return self._variables(self.state.eval_model)
 
     def save(self, file_path, background: bool = False) -> None:
         """Write a model checkpoint of the eval (EMA) weights. The copy to
         the host is made before this returns; with ``background`` the
-        serialization and the write go on in a thread."""
-        ckpt.save_model_checkpoint(file_path, self.params, self.eval_variables(), background=background)
+        serialization and the write go on in a thread. Over a process group
+        the first process writes; under a model axis every process calls it."""
+        if not self._gathers():
+            return
+        variables = self.eval_variables()
+        if self.writes_files:
+            ckpt.save_model_checkpoint(file_path, self.params, variables, background=background)
+
+    def _optimizer_tensors(self) -> dict[str, dict]:
+        """torch.optim's per-parameter state as ``{key: {parameter name: value}}``."""
+        names = [name for name, _ in self.state.model.named_parameters()]
+        per_key: dict[str, dict] = {}
+        for index, entry in self.state.optimizer.state_dict()["state"].items():
+            for key, value in entry.items():
+                per_key.setdefault(key, {})[names[index]] = value
+        return per_key
 
     def _train_state_tree(self) -> dict:
         state = self.state
-        live = to_jax_variables(state.model)
-        ema = to_jax_variables(state.ema_model) if state.ema_model is not None else None
-        names = [name for name, _ in state.model.named_parameters()]
-        per_key: dict[str, dict] = {}
-        for index, entry in state.optimizer.state_dict()["state"].items():
-            for key, value in entry.items():
-                per_key.setdefault(key, {})[names[index]] = value
+        live = self._variables(state.model)
+        ema = self._variables(state.ema_model) if state.ema_model is not None else None
+        per_key = {key: tensor_lib.gather_tensors(flat, self.mesh) for key, flat in self._optimizer_tensors().items()}
         return {
             "step": np.asarray(state.step, np.int32),
             "params": live["params"],
@@ -471,30 +529,44 @@ class MouseModel:
 
     def save_train_state(self, file_path, extra: dict | None = None, background: bool = False) -> None:
         """Write the resume state: weights, BN statistics, EMA, optimizer
-        state, the generator and the update count, with ``extra``."""
+        state, the generator and the update count, with ``extra``. A path
+        ending in ``.orbax`` is the sharded format (``background`` is not
+        read): every process of the mesh must call it. Otherwise one msgpack
+        file, written as ``save`` writes."""
         if self.state is None:
             raise RuntimeError("Call build_state() before save_train_state()")
-        _refuse_sharded(file_path)
-        ckpt.save_train_state(file_path, self._train_state_tree(), self.params, extra=extra, background=background)
+        if Path(file_path).suffix == ".orbax":
+            ckpt.save_train_state_sharded(file_path, self._sharded_tensors(), self.params, extra=extra,
+                                          process_group=self._process_group(), primary=self.writes_files)
+            return
+        if not self._gathers():
+            return
+        tree = self._train_state_tree()
+        if self.writes_files:
+            ckpt.save_train_state(file_path, tree, self.params, extra=extra, background=background)
 
     def load_train_state(self, file_path) -> dict:
         """Restore a state ``save_train_state`` wrote into this model, built
-        from the same config; returns its ``extra``."""
+        from the same config; returns its ``extra``. A msgpack state loads
+        on any mesh; a ``.orbax`` one on a mesh of its ``model`` size (else
+        ``ValueError``: it is not resharded)."""
         if self.state is None:
             raise RuntimeError("Call build_state() before load_train_state()")
-        _refuse_sharded(file_path)
+        if Path(file_path).suffix == ".orbax":
+            return self._load_sharded(file_path)
         tree, extra = ckpt.load_train_state(file_path)
         state = self.state
         if (tree["ema_params"] is None) != (state.ema_model is None):
             raise ValueError("the train state and this model must both keep an EMA, or neither")
-        state.model.load_state_dict(from_jax_variables(tree["params"], tree["batch_stats"]), strict=True)
+        state.model.load_state_dict(self._slices(tree["params"], tree["batch_stats"]), strict=True)
         if state.ema_model is not None:
-            state.ema_model.load_state_dict(
-                from_jax_variables(tree["ema_params"], tree["ema_batch_stats"]), strict=True)
+            state.ema_model.load_state_dict(self._slices(tree["ema_params"], tree["ema_batch_stats"]), strict=True)
         index = {name: i for i, (name, _) in enumerate(state.model.named_parameters())}
         per_param: dict[int, dict] = {}
         for key, nested in tree["optimizer"].items():
             for name, value in _leaves(nested):
+                if isinstance(value, torch.Tensor):
+                    value = tensor_lib.scatter_state_dict({name: value}, self.mesh)[name]
                 per_param.setdefault(index[name], {})[key] = value
         # load_state_dict moves the moments to their parameters' device and dtype.
         state.optimizer.load_state_dict({"state": per_param,
@@ -503,6 +575,81 @@ class MouseModel:
         state.step = int(tree["step"])
         self._replicate()
         return extra
+
+    def _slices(self, params: dict, batch_stats: dict) -> dict:
+        """A state dict of this process's slices from nested whole trees."""
+        return tensor_lib.scatter_state_dict(from_jax_variables(params, batch_stats), self.mesh)
+
+    # ------------------------------------------------------ sharded state
+
+    def _process_group(self):
+        """The group a sharded save or load runs over (None: this process alone)."""
+        return self.mesh.group if self.mesh is not None and self.mesh.distributed else None
+
+    def _key(self, prefix: str, name: str, shape) -> str:
+        """The sharded train state's key of a tensor: its slice's key under a model axis."""
+        key = f"{prefix}/{name}"
+        if self.tensor_parallel and tensor_lib.param_sharding_rules(name, shape) is not None:
+            key = ckpt.SLICE_KEY.format(key=key, index=self.mesh.model_index, count=self.mesh.num_model)
+        return key
+
+    def _module_tensors(self) -> dict[str, torch.Tensor]:
+        """The live and EMA weights and BN statistics under their keys (the tensors themselves)."""
+        out = {}
+        models = [("", self.state.model)]
+        if self.state.ema_model is not None:
+            models.append(("ema_", self.state.ema_model))
+        for prefix, module in models:
+            params = {name for name, _ in module.named_parameters()}
+            for name, value in module.state_dict().items():
+                kind = "params" if name in params else "batch_stats"
+                out[self._key(prefix + kind, name, value.shape)] = value
+        return out
+
+    def _sharded_tensors(self) -> dict[str, torch.Tensor]:
+        """Everything the sharded train state holds, flat: this process's tensors."""
+        out = self._module_tensors()
+        for key, flat in self._optimizer_tensors().items():
+            for name, value in flat.items():
+                out[self._key(f"optimizer/{key}", name, value.shape)] = value
+        out["step"] = torch.tensor(self.state.step, dtype=torch.int64)
+        out["generator"] = self.state.generator.get_state()
+        return out
+
+    def _load_sharded(self, dir_path) -> dict:
+        meta, keys = ckpt.sharded_train_state_keys(dir_path)
+        saved, here = ckpt.model_axis_of(keys), (self.mesh.num_model if self.mesh is not None else 1)
+        if saved != here:
+            raise ValueError(f"{dir_path} was written over a model axis of size {saved}; this model's is {here}: "
+                             "a sharded train state is not resharded (load the msgpack train state instead)")
+        state = self.state
+        tensors = self._module_tensors()
+        if ("ema_params" in {k.split("/")[0] for k in keys}) != (state.ema_model is not None):
+            raise ValueError("the train state and this model must both keep an EMA, or neither")
+        parameters = dict(state.model.named_parameters())
+        moments: dict[str, tuple[str, str]] = {}
+        for key, (shape, dtype) in keys.items():
+            if not key.startswith("optimizer/"):
+                continue
+            _, kind, name = key.split("/", 2)
+            name = ckpt.SLICE_SUFFIX.sub("", name)
+            if self._key(f"optimizer/{kind}", name, shape) != key:
+                continue  # another slice's
+            device = parameters[name].device if len(shape) else "cpu"
+            tensors[key] = torch.empty(shape, dtype=dtype, device=device)
+            moments[key] = (kind, name)
+        tensors["step"] = torch.zeros((), dtype=torch.int64)
+        tensors["generator"] = torch.empty(keys["generator"][0], dtype=torch.uint8)
+        ckpt.load_train_state_sharded(dir_path, tensors, process_group=self._process_group())
+        index = {name: i for i, name in enumerate(parameters)}
+        per_param: dict[int, dict] = {}
+        for key, (kind, name) in moments.items():
+            per_param.setdefault(index[name], {})[kind] = tensors[key]
+        state.optimizer.load_state_dict({"state": per_param,
+                                         "param_groups": state.optimizer.state_dict()["param_groups"]})
+        state.generator.set_state(tensors["generator"])
+        state.step = int(tensors["step"])
+        return meta.get("extra", {})
 
 
 def _leaves(tree: dict, prefix: str = ""):
@@ -515,18 +662,12 @@ def _leaves(tree: dict, prefix: str = ""):
             yield f"{prefix}{key}", ckpt.as_tensor(value) if is_array else value
 
 
-def _refuse_sharded(file_path) -> None:
-    if Path(file_path).suffix == ".orbax":
-        raise NotImplementedError(
-            "the sharded (orbax) train-state format is not ported yet (ROADMAP.md §A.4b)")
-
-
 def load_model(file_path, device: str | torch.device = "cuda", mesh: mesh_lib.Mesh | None = None) -> MouseModel:
     """A ``MouseModel`` from a model checkpoint (the port's or the JAX
     package's): the module built from the checkpoint's config, its saved
     eval weights loaded, on ``device`` (with a ``mesh``, on the mesh's, the
-    first process's weights on every process); ``predict`` and
-    ``val_step`` run them."""
+    first process's weights on every process, sliced under a model axis);
+    ``predict`` and ``val_step`` run them."""
     device = resolve_device(device if mesh is None else mesh.device)
     payload = ckpt.load_model_checkpoint(file_path)
     model = MouseModel(payload["params"], device=device, mesh=mesh)
@@ -534,6 +675,7 @@ def load_model(file_path, device: str | torch.device = "cuda", mesh: mesh_lib.Me
     module = get_nn_module(model.nn_name, model.nn_params, device=model.device)
     module.load_state_dict(from_jax_variables(nn_state["params"], nn_state.get("batch_stats", {})), strict=True)
     mesh_lib.replicate_tree(mesh, module)
+    tensor_lib.shard_module(module, mesh)
     model.nn_module = module
     model.state = TrainState(step=0, model=module, optimizer=None, ema_model=None,
                              generator=torch.Generator(device=model.device).manual_seed(0))

@@ -10,8 +10,9 @@ Counterpart of ``sensorium_tpu/engine/steps.py``. One train step:
   running statistics carry from chunk to chunk, as sequential forwards do;
 * with a teacher, its eval forward runs under ``no_grad`` and
   ``inject_distill_targets`` fills the zero-weight cells before the loss;
-* optional clipping (``torch.nn.utils.clip_grad_norm_``), then the lr of
-  the update count, the optimizer step, and the EMA over parameters and BN
+* optional clipping (``torch.nn.utils.clip_grad_norm_``: every gradient
+  scaled by ``min(1, clip / (global norm + 1e-6))``), then the lr of the
+  update count, the optimizer step, and the EMA over parameters and BN
   statistics.
 
 With a data-parallel ``mesh`` the step gets this process's rows of the
@@ -42,6 +43,7 @@ from sensorium_tpu_torch.engine.ema import ema_tensors, ema_update
 from sensorium_tpu_torch.engine.losses import inject_distill_targets
 from sensorium_tpu_torch.engine.state import TrainState
 from sensorium_tpu_torch.parallel import mesh as mesh_lib
+from sensorium_tpu_torch.parallel.tensor import param_sharding_rules
 
 
 def make_train_step(
@@ -92,7 +94,10 @@ def make_train_step(
             mesh_lib.reduce_gradients(mesh, model.parameters())
             mesh_lib.all_reduce(mesh, total)
         if grad_clip > 0.0:
-            torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
+            if mesh_lib.tensor_parallel(mesh):
+                clip_sharded_grad_norm_(model, grad_clip, mesh)
+            else:
+                torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
         if schedule is not None:
             lr = float(schedule(state.step))
             for group in optimizer.param_groups:
@@ -104,6 +109,22 @@ def make_train_step(
         return total
 
     return step
+
+
+@torch.no_grad()
+def clip_sharded_grad_norm_(model: nn.Module, max_norm: float, mesh: mesh_lib.Mesh) -> torch.Tensor:
+    """``clip_grad_norm_`` over a model whose sharded gradients are slices:
+    the squared norms of the sharded ones summed over the model group, the
+    replicated ones' added once; returns the global norm."""
+    grads = {name: p.grad for name, p in model.named_parameters() if p.grad is not None}
+    squares = [torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device) for _ in range(2)]
+    for name, g in grads.items():
+        squares[param_sharding_rules(name, g.shape) is not None] += g.float().square().sum()
+    mesh_lib.all_reduce(mesh, squares[1], over="model")
+    total = (squares[0] + squares[1]).sqrt()
+    coef = (max_norm / (total + 1e-6)).clamp(max=1.0)
+    torch._foreach_mul_(list(grads.values()), coef)
+    return total
 
 
 def make_val_step(loss_fn: Callable) -> Callable:

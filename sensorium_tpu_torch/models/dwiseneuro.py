@@ -29,6 +29,17 @@ blocks in the backward pass (``torch.utils.checkpoint``) instead of keeping
 their activations; a block's drop-path mask is drawn before the block, so the
 recompute uses the same mask, and its BatchNorms keep their first forward's
 shift and update their running statistics once.
+
+Tensor parallelism (``parallel/tensor.py``): once ``shard_module`` has
+sliced the cortex kernels and the readout over a mesh's ``model`` axis,
+``model_mesh`` holds that mesh. A cortex layer then multiplies its
+replicated input (through ``copy_to_model``) by its kernel slice, gathers
+the slices along the per-group axis and flattens them to the (..., G *
+Cout/G) layout that BN and the channel shuffle read; the readout multiplies
+the replicated cortex output by its (…, P / model) slice, adds the bias
+slice, applies softplus and gathers the rows. The core, every BN, the
+learnable softplus betas (whose gradient is summed over the model group)
+and the masks are replicated. Without it the forward is the single-device one.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ from sensorium_tpu_torch.ops.norm import BatchNorm
 from sensorium_tpu_torch.ops.pe import position_encoding_3d
 from sensorium_tpu_torch.ops.shuffle import channel_shuffle
 from sensorium_tpu_torch.ops.stochastic import channel_dropout, drop_path, drop_path_mask
+from sensorium_tpu_torch.parallel.tensor import copy_to_model, gather_from_model
 
 
 def kaiming_normal_out(shape: Sequence[int], fan_out: int, generator: torch.Generator) -> nn.Parameter:
@@ -228,9 +240,16 @@ class ShuffleLayer(nn.Module):
         self.kernel = kaiming_normal_out((groups, in_features // groups, cout_g), cout_g, generator)
         self.bn = BatchNormAct(out_features, dtype=dtype)
         self.bn_sc = BatchNormAct(out_features, act=False, dtype=dtype)
+        self.model_mesh = None  # set by parallel.tensor.shard_module
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        y = self.bn(grouped_pointwise(x, self.kernel.to(self.dtype)))
+        if self.model_mesh is None:
+            y = grouped_pointwise(x, self.kernel.to(self.dtype))
+        else:
+            # (..., G * Cout/G/model) -> gather each group's columns -> (..., G * Cout/G).
+            y = grouped_pointwise(copy_to_model(x, self.model_mesh), self.kernel.to(self.dtype))
+            y = gather_from_model(y.reshape(*y.shape[:-1], self.groups, -1), -1, self.model_mesh).flatten(-2)
+        y = self.bn(y)
         y = channel_shuffle(y, self.groups)
         if self.training:
             y = drop_path(y, self.drop_path_rate, generator)
@@ -292,6 +311,7 @@ class DwiseNeuro(nn.Module):
         self.dtype = dtype
         self.readout_pad_multiple = readout_pad_multiple
         self.drop_rate, self.drop_path_rate = drop_rate, drop_path_rate
+        self.model_mesh = None  # set by parallel.tensor.shard_module
         self._pe_cache: dict[tuple, torch.Tensor] = {}
         self._pe_buffers: dict[tuple, str] = {}  # (C, T, H, W) -> name of a held table
 
@@ -403,6 +423,22 @@ class DwiseNeuro(nn.Module):
             return softplus_learnable(logits, beta)
         return softplus_beta(logits, self.softplus_beta)
 
+    def _betas(self) -> torch.Tensor | None:
+        """The learnable (M,) softplus betas, or None. Under a model axis each
+        process applies them to its row slice only, so their gradient is
+        summed over the model group (``copy_to_model``)."""
+        if not self.learnable_softplus:
+            return None
+        if self.model_mesh is None:
+            return self.readout_softplus_beta
+        return copy_to_model(self.readout_softplus_beta, self.model_mesh)
+
+    def _gather_rows(self, grouped: torch.Tensor) -> torch.Tensor:
+        """(..., G, P / model) readout slices -> (..., G, P) under a model axis."""
+        if self.model_mesh is None:
+            return grouped
+        return gather_from_model(grouped, -1, self.model_mesh)
+
     def _assemble_flat(self, grouped: torch.Tensor, mouse: int) -> torch.Tensor:
         """(B, T, G, P) group-layout activations -> (B, N_mouse, T) flat order."""
         sizes = readout_group_sizes(self.readout_outputs[mouse], self.groups)
@@ -418,6 +454,8 @@ class DwiseNeuro(nn.Module):
         x = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype)  # (B, T, C)
         x = self.cortex(x, generator)
         dropout = self.training and self.drop_rate > 0.0
+        if self.model_mesh is not None:
+            x = copy_to_model(x, self.model_mesh)
 
         if mouse_index is not None:
             if dropout:
@@ -425,8 +463,9 @@ class DwiseNeuro(nn.Module):
             xg = x.reshape(*x.shape[:-1], self.groups, x.shape[-1] // self.groups)  # (B, T, G, C/G)
             kernel = self.readout_kernel[mouse_index].to(self.dtype)
             logits = einsum_f32("btgc,gcp->btgp", xg, kernel) + self.readout_bias[mouse_index]
-            beta = self.readout_softplus_beta[mouse_index] if self.learnable_softplus else None
-            return self._assemble_flat(self._softplus(logits, beta), mouse_index)
+            betas = self._betas()
+            beta = None if betas is None else betas[mouse_index]
+            return self._assemble_flat(self._gather_rows(self._softplus(logits, beta)), mouse_index)
 
         kernel = self.readout_kernel.to(self.dtype)
         if dropout:
@@ -440,8 +479,9 @@ class DwiseNeuro(nn.Module):
             xg = x.reshape(*x.shape[:-1], self.groups, x.shape[-1] // self.groups)
             logits = einsum_f32("btgc,mgcp->mbtgp", xg, kernel)
         logits = logits + self.readout_bias[:, None, None]
-        beta = self.readout_softplus_beta[:, None, None, None, None] if self.learnable_softplus else None
-        pred = self._softplus(logits, beta)
+        betas = self._betas()
+        beta = None if betas is None else betas[:, None, None, None, None]
+        pred = self._gather_rows(self._softplus(logits, beta))
         padded = []
         for mouse in range(self.num_mice):
             flat = self._assemble_flat(pred[mouse], mouse)  # (B, N_m, T)

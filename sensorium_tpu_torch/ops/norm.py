@@ -23,7 +23,9 @@ Under a data-parallel mesh (``parallel.mesh.active``) the statistics are the
 global batch's, as GSPMD makes them in JAX. Every process holds as many
 rows (the mesh's sharding sees to it), so the global ``[E[x], E[(x-c)²]]``
 per channel is the mean of the processes': the forward reduces its local
-pair in one ``all_reduce`` and divides by the process count (``c``, the
+pair in one ``all_reduce`` over the data group (under a ``model`` axis the
+processes of a model group hold the same rows, and are not summed) and
+divides by the data extent (``c``, the
 running mean, is the same on every process; the count is known, so no
 ``n`` travels), then takes the biased variance as above; the running
 update and dx use the global ``n``. At one process this is the

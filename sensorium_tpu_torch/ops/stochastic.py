@@ -6,9 +6,10 @@ a PRNG key). The two frameworks draw different bits from the same seed, so
 the tests compare mask shapes, scaling and distributions, not values.
 
 Under a data-parallel mesh (``parallel.mesh.active``) a process holds its
-rows of the global batch, and every process's generator is in the same
-state: each mask is drawn for the global batch and cut to the process's
-rows, so a sharded step drops what the single-process step drops.
+rows of the global batch (by its data index: the processes of a model axis
+hold the same rows), and every process's generator is in the same state:
+each mask is drawn for the global batch and cut to the process's rows, so a
+sharded step drops what the single-process step drops.
 """
 
 from __future__ import annotations

@@ -854,6 +854,76 @@ def test_train_step_over_a_group_of_one_is_bitwise_the_single_card_step(card_gro
 
 
 @pytest.fixture
+def card_model_group_of_one(card_group_of_one):
+    """The group of one as a ``model`` group too: the tensor-parallel
+    Functions run their collectives (gloo on CUDA tensors) over one process."""
+    from sensorium_tpu_torch.parallel import mesh as mesh_lib
+
+    group = card_group_of_one.group
+    return mesh_lib.Mesh({"data": 1, "model": 1}, card_group_of_one.devices, 0, 1, group, group, group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_parallel_functions_over_a_card_group_of_one(card_model_group_of_one, dtype):
+    """``copy_to_model`` (an all_reduce in the backward) and
+    ``gather_from_model`` (an all_gather, a slice in the backward) on CUDA
+    tensors: over one process, the identity forward and backward, bitwise."""
+    from sensorium_tpu_torch.parallel.tensor import copy_to_model, gather, gather_from_model
+
+    mesh = card_model_group_of_one
+    rng = np.random.default_rng(21)
+    x = rand(rng, 3, 4, 2, 6).to("cuda", dtype).requires_grad_(True)
+    dy = rand(rng, 3, 4, 2, 6).to("cuda", dtype)
+    y = gather_from_model(copy_to_model(x, mesh) * 2, -1, mesh)
+    y.backward(dy)
+    assert y.is_cuda and y.dtype == dtype and torch.equal(y, x.detach() * 2)
+    assert torch.equal(x.grad, dy * 2)
+    assert torch.equal(gather(x, 1, mesh), x.detach())
+
+
+@pytest.mark.cuda
+def test_sharded_clip_over_a_card_group_of_one_is_torchs(card_model_group_of_one):
+    """The global-norm clip's model-group sum on the card: over one process,
+    ``clip_grad_norm_``'s scale."""
+    from sensorium_tpu_torch.engine.steps import clip_sharded_grad_norm_
+
+    modules = []
+    for _ in range(2):
+        module = get_nn_module("dwiseneuro", TINY, device="cuda", generator=torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(22)
+        for p in module.parameters():
+            p.grad = rand(rng, *p.shape).cuda()
+        modules.append(module)
+    expected = torch.nn.utils.clip_grad_norm_(modules[0].parameters(), 0.5)
+    got = clip_sharded_grad_norm_(modules[1], 0.5, card_model_group_of_one)
+    torch.testing.assert_close(got, expected, rtol=1e-6, atol=0)
+    for a, b in zip(modules[0].parameters(), modules[1].parameters()):
+        torch.testing.assert_close(b.grad, a.grad, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_sharded_train_state_on_the_card_over_a_group_of_one(card_group_of_one, tmp_path):
+    """A ``.orbax`` state of a card model (torch.distributed.checkpoint from
+    CUDA tensors, gloo) restores bitwise and continues bitwise."""
+    params = {**ARGUS, "nn_module": ("dwiseneuro", {**TINY, "drop_rate": 0.2, "drop_path_rate": 0.1}),
+              "optimizer": ("AdamW", {"lr": 1e-3, "weight_decay": 0.05})}
+    batch = tiny_batch(np.random.default_rng(23))
+    models = []
+    for seed in (0, 1):
+        model = MouseModel(params, device="cuda", mesh=card_group_of_one)
+        model.set_ema(0.9)
+        model.build_state(seed=seed, learning_rate=1e-3)
+        models.append(model)
+    models[0].train_step(batch)
+    models[0].save_train_state(tmp_path / "train_state.orbax", extra={"epoch": 1})
+    assert models[1].load_train_state(tmp_path / "train_state.orbax") == {"epoch": 1}
+    assert float(models[0].train_step(batch)) == float(models[1].train_step(batch))
+    for a, b in zip(models[0].state.ema_model.state_dict().values(), models[1].state.ema_model.state_dict().values()):
+        assert b.is_cuda and torch.equal(a, b)
+
+
+@pytest.fixture
 def card_model(cuda, tmp_path):
     """A tiny fp32 model on the card, and its checkpoint."""
     model = MouseModel({**ARGUS, "nn_module": ("dwiseneuro", TINY)}, device="cuda")

@@ -106,7 +106,7 @@ def test_two_process_training_matches_one_process(root, env):
     outputs = finish(procs)
     for pid, out in enumerate(outputs[:2]):
         assert f"Multihost: process {pid}/2, 2 global devices (gloo, cpu)" in out
-        assert "Mesh: {'data': 2}" in out
+        assert "Mesh: {'data': 2, 'model': 1}" in out
 
     fold = Path("experiments") / "tiny_mh" / f"fold_{FOLD}"
     assert not (dirs[1] / "experiments").exists(), "process 1 wrote files"

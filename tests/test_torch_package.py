@@ -31,7 +31,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "sensorium_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "orbax", "sensorium_tpu"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -50,7 +50,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "sensorium_tpu_torch.engine.model" in result["modules"]
     for name in ("tools.dwbench", "data.loader", "data.native", "engine.callbacks", "engine.checkpoint",
                  "utils.msgpack", "infer.submission", "cli.predict", "cli.import_torch", "cli.train",
-                 "cli.download_data", "utils.profiling", "infer.export", "cli.export"):
+                 "cli.download_data", "utils.profiling", "infer.export", "cli.export", "parallel.mesh",
+                 "parallel.tensor", "parallel.multihost"):
         assert f"sensorium_tpu_torch.{name}" in result["modules"]
 
 
@@ -60,7 +61,7 @@ def test_training_engine_imports_no_jax():
         "import json, sys\n"
         "import sensorium_tpu_torch.engine.steps, sensorium_tpu_torch.engine.model\n"
         "print(json.dumps(sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'sensorium_tpu'))))"
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'orbax', 'sensorium_tpu'))))"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -74,13 +75,41 @@ def test_serving_export_imports_no_jax():
         "import json, sys\n"
         "import sensorium_tpu_torch.infer.export, sensorium_tpu_torch.cli.export\n"
         "print(json.dumps({'jax': sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'sensorium_tpu')), "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'orbax', 'sensorium_tpu')), "
         "'model': sorted(m for m in sys.modules "
         "if m.startswith(('sensorium_tpu_torch.models', 'sensorium_tpu_torch.engine')))}))"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"jax": [], "model": []}
+
+
+SHARDED_STATE_ROUND_TRIP = """
+import json, sys, tempfile
+from pathlib import Path
+from sensorium_tpu_torch.engine.model import MouseModel
+params = {"nn_module": ("dwiseneuro", {"readout_outputs": [5, 7], "core_features": (8, 8), "spatial_strides": (2, 2),
+          "expansion_ratio": 2, "se_reduce_ratio": 4, "cortex_features": (16, 16), "dtype": "float32",
+          "readout_pad_multiple": 8, "drop_rate": 0.0, "drop_path_rate": 0.0})}
+with tempfile.TemporaryDirectory() as work:
+    for seed in (0, 1):
+        model = MouseModel(params, device="cpu")
+        model.build_state(seed=seed)
+        if seed == 0:
+            model.save_train_state(Path(work) / "state.orbax", extra={"epoch": 3})
+    assert model.load_train_state(Path(work) / "state.orbax") == {"epoch": 3}
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "orbax", "sensorium_tpu"))))
+"""
+
+
+def test_sharded_train_state_imports_no_jax_nor_orbax():
+    """A ``.orbax`` train state saved and loaded by the port pulls in neither
+    JAX, orbax nor the JAX package (``torch.distributed.checkpoint`` writes it)."""
+    proc = subprocess.run([sys.executable, "-c", SHARDED_STATE_ROUND_TRIP], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_data_feed_imports_neither_pillow_nor_scipy():

@@ -7,8 +7,8 @@ both starting from one model checkpoint that the JAX package wrote
 (``init_from``). Per epoch, the logs' losses, correlations and lr are held
 at ``tests/test_torch_fit.py``'s tolerances. The cases of
 ``tests/test_integration.py`` follow: resume, the three-stage plan,
-distillation; then the refused multi-device flags and a real SIGTERM in a
-subprocess (exit 75, then ``--resume``).
+distillation; then the multi-device flags (the mesh a ``model`` axis
+makes) and a real SIGTERM in a subprocess (exit 75, then ``--resume``).
 """
 
 from __future__ import annotations
@@ -223,12 +223,36 @@ def test_distillation_without_a_teacher_checkpoint_raises(env):
     ["--mesh", "replica,data,model"],
     ["--sharded-checkpoint"],
 ])
-def test_multi_device_flags_are_refused(flags, capsys):
-    """Tensor parallelism and the sharded train state are not ported."""
-    with pytest.raises(SystemExit) as exit_info:
-        train.parse_arguments(["-e", EXPERIMENT, *flags])
-    assert exit_info.value.code == 2
-    assert "ROADMAP.md §A.4b" in capsys.readouterr().err
+def test_multi_device_flags_are_refused(flags):
+    """Tensor parallelism and the sharded train state, refused until they
+    were ported, are accepted now (``tests/test_torch_tensor_parallel.py``
+    trains with them)."""
+    args = train.parse_arguments(["-e", EXPERIMENT, *flags])
+    if flags[0] == "--mesh":
+        assert args.mesh == flags[1] and not args.sharded_checkpoint
+    else:
+        assert args.sharded_checkpoint and args.mesh == "data"
+
+
+@pytest.mark.parametrize("mesh, world, local, expected", [
+    ("data,model", 4, 4, {"data": 2, "model": 2}),
+    ("data,model", 3, 3, {"data": 3, "model": 1}),
+    ("data", 4, 4, {"data": 4, "model": 1}),
+    ("replica,data,model", 4, 2, {"replica": 2, "data": 1, "model": 2}),
+    ("replica,data,model", 6, 3, {"replica": 2, "data": 3, "model": 1}),
+])
+def test_build_mesh_takes_a_model_axis_of_two_where_the_cards_are_even(mesh, world, local, expected, monkeypatch):
+    """``sensorium_tpu/cli/train.py`` ``build_mesh``: 2 where the card count
+    (a host's, for ``replica``) is even, else 1; over a fake process group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    import torch.distributed as dist
+
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(local))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        assert train.build_mesh(train.parse_arguments(["-e", EXPERIMENT, "--mesh", mesh])).shape == expected
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("flags, key, value", [

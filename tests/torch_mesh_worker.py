@@ -1,13 +1,17 @@
-"""The port's data-parallel steps on the CPU, for ``tests/test_torch_parallel.py``.
+"""The port's data-parallel and tensor-parallel steps on the CPU, for
+``tests/test_torch_parallel.py`` and ``tests/test_torch_tensor_parallel.py``.
 
-    python -m tests.torch_mesh_worker JOB_DIR RANK WORLD PORT
+    python -m tests.torch_mesh_worker JOB_DIR RANK WORLD PORT [NUM_MODEL [NUM_SLICES]]
 
 One rank of a gloo group of WORLD processes (store at 127.0.0.1:PORT). It
 reads ``JOB_DIR/inputs.npz`` (the weights as the port's state dict under
-``w/<name>``, the batches under ``<batch>/<array>``), runs ``run_scenarios``
-over ``create_mesh()`` and writes ``JOB_DIR/rank<RANK>.npz``. The test runs
-the same ``run_scenarios`` without a mesh in its own process: that is the
-single-process reference. This module imports torch and the port only.
+``w/<name>``, the batches under ``<batch>/<array>``). With NUM_MODEL 1 (the
+default) it runs ``run_scenarios`` over ``create_mesh()``; otherwise
+``run_tp_scenarios`` over ``create_mesh(num_model=NUM_MODEL)``, or over
+``create_hybrid_mesh(NUM_SLICES, num_model=NUM_MODEL)`` when NUM_SLICES is
+given. It writes ``JOB_DIR/rank<RANK>.npz``. The test runs the same
+scenarios without a mesh in its own process: that is the single-process
+reference. This module imports torch and the port only.
 """
 
 from __future__ import annotations
@@ -20,12 +24,16 @@ import torch
 
 from sensorium_tpu_torch.data.datasets import MiceBatch
 from sensorium_tpu_torch.engine.metrics import batch_corr_stats
-from sensorium_tpu_torch.engine.model import MouseModel
+from sensorium_tpu_torch.engine.model import MouseModel, load_model
+from sensorium_tpu_torch.engine.steps import clip_sharded_grad_norm_
 from sensorium_tpu_torch.models.registry import get_nn_module
 from sensorium_tpu_torch.parallel import mesh as mesh_lib
+from sensorium_tpu_torch.parallel import tensor as tensor_lib
 
 LR = 1e-3
 DISTILL_RATIO = 0.36
+EMA_DECAY = 0.9
+GRAD_CLIP = 1e-3  # far below the tiny model's gradient norm: every step is clipped
 
 # tests/test_engine.py tiny_params() (the test holds the two equal), SGD.
 TINY_NN = {
@@ -131,17 +139,160 @@ def run_scenarios(mesh, inputs: dict) -> dict:
     return out
 
 
-def main(job_dir: str, rank: str, world: str, port: str) -> None:
+def tp_params(optimizer: tuple, drop: bool = False, grad_clip: float = 0.0,
+              learnable_softplus: bool = False) -> dict:
+    params = {**tiny_params(drop=drop), "optimizer": optimizer, "grad_clip": grad_clip}
+    if learnable_softplus:
+        name, nn_params = params["nn_module"]
+        params["nn_module"] = (name, {**nn_params, "learnable_softplus": True})
+    return params
+
+
+SGD_MOMENTUM = ("SGD", {"lr": LR, "momentum": 0.9})
+ADAMW = ("AdamW", {"lr": LR, "weight_decay": 0.05})
+
+
+def _tp_model(params: dict, mesh, init: Path, seed: int = 0, ema: bool = True) -> MouseModel:
+    """A model whose live and EMA weights are the ``init`` checkpoint's, sliced under a model axis."""
+    model = MouseModel(params, device="cpu", mesh=mesh)
+    if ema:
+        model.set_ema(EMA_DECAY)
+    model.build_state(seed=seed, learning_rate=LR)
+    model.init_from_checkpoint(init)
+    return model
+
+
+def _whole(model: MouseModel, module) -> dict:
+    return {k: v.numpy().copy() for k, v in tensor_lib.gather_state_dict(module, model.mesh).items()}
+
+
+def _momentum(model: MouseModel) -> dict:
+    """The momentum buffers, gathered whole, by parameter name."""
+    buffers = model._optimizer_tensors().get("momentum_buffer", {})
+    return {k: v.numpy().copy() for k, v in tensor_lib.gather_tensors(buffers, model.mesh).items()}
+
+
+def _local(model: MouseModel) -> dict:
+    """Everything this process holds of the state, its slices as they are."""
+    out = {f"live/{k}": v for k, v in model.state.model.state_dict().items()}
+    if model.state.ema_model is not None:
+        out.update({f"ema/{k}": v for k, v in model.state.ema_model.state_dict().items()})
+    for key, flat in model._optimizer_tensors().items():
+        out.update({f"opt/{key}/{k}": torch.as_tensor(v) for k, v in flat.items()})
+    out["generator"] = model.state.generator.get_state()
+    return out
+
+
+def _bitwise(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _record_tp(out: dict, label: str, model: MouseModel, losses=None) -> None:
+    if losses is not None:
+        out[f"{label}/losses"] = np.asarray(losses, np.float64)
+    for name, value in _whole(model, model.state.model).items():
+        out[f"{label}/state/{name}"] = value
+    if model.state.ema_model is not None:
+        for name, value in _whole(model, model.state.ema_model).items():
+            out[f"{label}/ema/{name}"] = value
+    for name, value in _momentum(model).items():
+        out[f"{label}/momentum/{name}"] = value
+    # This process's replicated tensors, as they are (a model group's must be equal bitwise).
+    for name, value in model.state.model.state_dict().items():
+        if tensor_lib.param_sharding_rules(name, value.shape) is None:
+            out[f"{label}/replicated/{name}"] = value.numpy().copy()
+
+
+def run_tp_scenarios(mesh, inputs: dict, job_dir: Path, label: str) -> dict:
+    """The tensor-parallel cases, each from the ``init.ckpt`` of ``job_dir``
+    (the JAX package's tiny model; ``init_softplus.ckpt`` with learnable
+    softplus betas); the files go to ``job_dir/label``.
+    Without a mesh this is the single-process reference."""
+    init, files = job_dir / "init.ckpt", job_dir / label
+    files.mkdir(exist_ok=True)
+    out: dict = {}
+
+    def steps(model, names):
+        return [float(model.train_step(_batch(inputs, name))) for name in names]
+
+    # Two SGD-momentum steps with an EMA: losses, weights, EMA, momentum, and the shards' shapes.
+    model = _tp_model(tp_params(SGD_MOMENTUM), mesh, init)
+    _record_tp(out, "sgdm", model, steps(model, ["tp0", "tp1"]))
+    # The global gradient norm the clip takes, of the last step's gradients (max_norm inf: no clip).
+    if mesh is None:
+        norm = torch.nn.utils.clip_grad_norm_(model.state.model.parameters(), float("inf"))
+    else:
+        norm = clip_sharded_grad_norm_(model.state.model, float("inf"), mesh)
+    out["sgdm/grad_norm"] = np.float64(float(norm))
+    for name, module in (("live", model.state.model), ("ema", model.state.ema_model)):
+        out[f"shapes/{name}"] = np.asarray(module.state_dict()["readout_kernel"].shape)
+    out["shapes/momentum"] = np.asarray(model._optimizer_tensors()["momentum_buffer"]["readout_kernel"].shape)
+    out["shapes/cortex"] = np.asarray(model.state.model.state_dict()["cortex_0.kernel"].shape)
+    # predict on the EMA weights: one mouse and all mice.
+    out["predict/mouse1"] = model.predict(inputs["probe"], mouse_index=1).numpy().copy()
+    out["predict/all"] = model.predict(inputs["probe"]).numpy().copy()
+    model.save_train_state(files / "stepped_state.ckpt", extra={"epoch": 1})
+
+    # The learnable softplus betas (from ``init_softplus.ckpt``): replicated,
+    # each process applies them to its row slice, so their gradient is summed
+    # over the model group.
+    model = _tp_model(tp_params(SGD_MOMENTUM, learnable_softplus=True), mesh, job_dir / "init_softplus.ckpt")
+    _record_tp(out, "softplus", model, steps(model, ["tp0", "tp1"]))
+
+    # The drop rates on: the masks are the global batch's on every process.
+    model = _tp_model(tp_params(SGD_MOMENTUM, drop=True), mesh, init, ema=False)
+    _record_tp(out, "dropout", model, steps(model, ["tp0"]))
+
+    # AdamW with every step clipped: the clip takes the global norm.
+    model = _tp_model(tp_params(ADAMW, grad_clip=GRAD_CLIP), mesh, init)
+    _record_tp(out, "adamw_clip", model, steps(model, ["tp0", "tp1"]))
+
+    # The msgpack files of a model before any step.
+    model = _tp_model(tp_params(ADAMW), mesh, init)
+    model.save(files / "model.ckpt")
+    model.save_train_state(files / "state.ckpt", extra={"epoch": 0})
+
+    # load_model over the mesh: the single process's checkpoint, sliced.
+    loaded = load_model(job_dir / "single_model.ckpt", device="cpu", mesh=mesh)
+    out["load_model/mouse1"] = loaded.predict(inputs["probe"], mouse_index=1).numpy().copy()
+    out["load_model/all"] = loaded.predict(inputs["probe"]).numpy().copy()
+
+    # The sharded train state: a step, save, a fresh model loads it, and both take one more step.
+    model = _tp_model(tp_params(SGD_MOMENTUM), mesh, init)
+    steps(model, ["tp0"])
+    model.save_train_state(files / "train_state.orbax", extra={"epoch": 2})
+    resumed = _tp_model(tp_params(SGD_MOMENTUM), mesh, init, seed=9)
+    extra = resumed.load_train_state(files / "train_state.orbax")
+    out["orbax/epoch"] = np.int64(extra["epoch"])
+    out["orbax/step"] = np.int64(resumed.state.step)
+    out["orbax/shape"] = np.asarray(resumed.state.model.state_dict()["readout_kernel"].shape)
+    out["orbax/restored_bitwise"] = np.bool_(_bitwise(_local(model), _local(resumed)))
+    out["orbax/continued_losses"] = np.asarray([steps(model, ["tp1"]), steps(resumed, ["tp1"])], np.float64)
+    out["orbax/continued_bitwise"] = np.bool_(_bitwise(_local(model), _local(resumed)))
+
+    # A sharded state written over another model axis is refused.
+    out["orbax/other_axis_error"] = np.str_(_error(lambda: resumed.load_train_state(job_dir / "single_state.orbax")))
+    return out
+
+
+def main(job_dir: str, rank: str, world: str, port: str, num_model: str = "1", num_slices: str = "") -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(2)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=int(world), rank=int(rank))
     try:
-        mesh = mesh_lib.create_mesh()
-        inputs = dict(np.load(Path(job_dir) / "inputs.npz"))
-        out = run_scenarios(mesh, inputs)
+        job = Path(job_dir)
+        inputs = dict(np.load(job / "inputs.npz"))
+        if num_model == "1":
+            mesh = mesh_lib.create_mesh()
+            out = run_scenarios(mesh, inputs)
+        else:
+            mesh = (mesh_lib.create_hybrid_mesh(int(num_slices), num_model=int(num_model)) if num_slices
+                    else mesh_lib.create_mesh(num_model=int(num_model)))
+            out = run_tp_scenarios(mesh, inputs, job, "_".join(f"{k}{v}" for k, v in mesh.shape.items()))
+            out["mesh/index"] = np.asarray([mesh.data_index, mesh.model_index])
         out["mesh/shape"] = np.asarray([mesh.shape["data"], mesh.index, mesh.processes])
-        np.savez(Path(job_dir) / f"rank{rank}.npz", **out)
+        np.savez(job / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
 
