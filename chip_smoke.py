@@ -202,9 +202,36 @@ Phases, each of which passes or makes the script exit non-zero:
    tolerances to the same fp32 fold on one card (in bf16 a forward's
    roundings depend on its size, which the data axis divides), then the
    SIGTERM run with those flags (exit 75) and ``--resume`` (exit 0); with
-   one card it prints that 18c did not run. ``--tp-cards`` runs 18c alone
-   on phase 11's dataset and fails with fewer than two cards. Two ranks on
-   one card prove numbers, not speed.
+   one card it prints that 18c did not run (``--cards`` runs it). Two ranks
+   on one card prove numbers, not speed;
+19. serving over a model axis and across cards. 19a: phase 13's checkpoint
+   served through ``Predictor(mesh=...)`` over a ``{data: 1, model: 2}`` and
+   a ``{data: 2, model: 2}`` mesh of this card repeated (one replica a data
+   index, its cortex and readout sliced over its two devices), phase 4's
+   three requests; against a one-card ``Predictor`` whose chunk is a
+   replica's share (32 / data), so that the frames that see only full
+   chunks meet forwards of the same windows, within ``EXPORT_REL_TOL`` of
+   the largest output; the difference from the chunk-32 one-card Predictor
+   on every frame printed beside it; windows/s of both, each sliced
+   weight's bytes a device, the host's milliseconds to queue one chunk's
+   forwards against the milliseconds until the cards have run them, 9 + 9
+   launches a replica's chunk forward. 19b:
+   the trial program over a 2-way data mesh (``mesh_data=2``; this card
+   repeated), exported, loaded and run on the same requests beside the live
+   sharded ``Predictor`` (frames that see only full chunks within
+   ``EXPORT_REL_TOL``); its graph must name the mesh's devices and no
+   other; the tensors it stores (``state_dict`` and constants) must not
+   exceed those of phase 17's one-card trial artifact (weights stored once);
+   export and load seconds, ``.pt2`` bytes and the archive's bytes by part
+   beside phase 17's artifact, windows/s. 19c: ``tools/dryrun.py``
+   ``dryrun_multichip(2)``, two gloo ranks sharing this card, one sharded
+   flagship step within 1e-4 of rank 0's unsharded step.
+
+``--cards`` runs only the parts that need two cards or more, and fails with
+fewer: 18c on phase 11's dataset, then phase 19 over 2-4 cards (devices
+``i % cards``; the artifact of the (data 2, model 2) Predictor too, and a
+one-card trial artifact to hold its stored bytes to; the dry run one NCCL
+rank a card, up to 4) from a seeded flagship checkpoint.
 
 After the counted serving run, one more request runs under
 ``torch.profiler`` and the device time is summed by kernel. The script then
@@ -214,8 +241,8 @@ prints the ``{"kernels": [...]}`` line, the nvidia-smi line again, and last
 ``chip_smoke_train_trace.json``) and the fit's logs go to ``--out``, by
 default ``build/chip_smoke/`` in the checkout; the fit's dataset is written
 there too and removed after phase 15. Checkpoints, train states, the
-prediction tree, the experiments and the artifacts of phases 12-18 go to a
-temporary directory outside ``--out``, removed at the end. Each phase 12-18
+prediction tree, the experiments and the artifacts of phases 12-19 go to a
+temporary directory outside ``--out``, removed at the end. Each phase 12-19
 counts the kernel launches of its own runs, from 0, and checks them against
 their forwards and steps.
 """
@@ -368,6 +395,11 @@ EXPORT_CHECKPOINT = "model-000-0.000000.ckpt"  # phase 13's EMA weights after on
 # must be the uninterrupted ranks' bit for bit; the checkpoint loads into one
 # card's load_model, whose forward on TP_PREDICT_ROWS rows is within
 # CPU_REL_TOL (the serving tolerance) of the TP forward's largest value.
+# Phase 19: the (data, model) meshes of 19a, the data mesh of 19b's
+# artifact (mesh_data=2), and 19c's ranks on one card.
+SERVE_MESHES = ((1, 2), (2, 2))
+ARTIFACT_MESHES = ((2, 1),)  # --cards adds (2, 2)
+DRYRUN_RANKS = 2
 TP_WORLD = 2
 TP_BATCH = 16
 TP_CONTINUED_STEPS = 2
@@ -2718,24 +2750,29 @@ def mesh_tp_cards(record: dict, fit_root: Path, work: Path) -> None:
                                "resume_seconds": resume_wall}
 
 
-def tp_cards_only(record: dict, out_dir: Path) -> None:
-    """``--tp-cards``: phase 18c alone on phase 11's dataset and phase 15's
-    configs, for a call with two cards or more; fails with fewer."""
-    import os
-
+def stored_bytes(path: Path) -> int:
+    """The bytes of the tensors an exported artifact stores: its weights and
+    buffers (``state_dict``) and its lifted constants."""
     import torch
 
-    if torch.cuda.device_count() < 2:
-        fail(f"--tp-cards needs two cards or more; {torch.cuda.device_count()} visible")
-    root = out_dir / "fit_data"
-    write_fit_dataset(root)
-    os.environ["SENSORIUM_FOLD_ASSIGNMENT"] = "trial"
-    try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-            write_cli_configs(Path(work) / "train_cli_configs")
-            mesh_tp_cards(record, root, Path(work))
-    finally:
-        shutil.rmtree(root)
+    program = torch.export.load(path)
+    tensors = [*program.state_dict.values(), *program.constants.values()]
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def archive_parts(path: Path) -> dict:
+    """A ``.pt2`` archive's bytes (uncompressed) by part: the weights, the
+    constants, the sample inputs, the graphs and their metadata (``models/``)
+    and the rest."""
+    import zipfile
+
+    parts = {"weights": 0, "constants": 0, "sample_inputs": 0, "models": 0, "other": 0}
+    with zipfile.ZipFile(path) as archive:
+        for info in archive.infolist():
+            names = info.filename.split("/")
+            part = next((n for n in ("weights", "constants", "sample_inputs", "models") if n in names), "other")
+            parts[part] += info.file_size
+    return parts
 
 
 def scan_body_calls(length: int) -> int:
@@ -2823,7 +2860,7 @@ def serving_export(record: dict, checkpoint: Path, work: Path) -> dict:
         resp = torch.zeros((live.model.readout_outputs[0], padded), device="cuda")
         blend = torch.zeros(padded, device="cuda")
         for chunk_windows, chunk_valid in zip(windows, valid):
-            flat, r, b = chunk_updates(live.model, stack, chunk_windows, live.blend_weights, 0, chunk_valid)
+            flat, r, b = chunk_updates([live.model], [stack], chunk_windows, live.blend_weights, 0, chunk_valid)
             resp.index_add_(1, flat, r)
             blend.index_add_(0, flat, b)
         return (resp / blend.clamp(min=1.0))[:, :TRIAL_LENGTH].cpu().numpy()
@@ -2909,6 +2946,261 @@ def serving_export(record: dict, checkpoint: Path, work: Path) -> dict:
     return launches
 
 
+def mesh_devices(count: int, cards: int) -> list[str]:
+    """``count`` devices of a mesh over ``cards`` cards: card i % cards."""
+    return [f"cuda:{i % cards}" for i in range(count)]
+
+
+def chunk_forwards(windows: int, chunk: int, replicas: int) -> int:
+    """Window forwards a trial: each chunk split over the replicas."""
+    return sum(min(replicas, windows - start, chunk) for start in range(0, windows, chunk))
+
+
+def graph_devices(program) -> set[str]:
+    """Every device an exported program's graphs name in their nodes' arguments."""
+    import torch
+
+    named = set()
+    for module in program.graph_module.modules():
+        if isinstance(module, torch.fx.GraphModule):
+            for node in module.graph.nodes:
+                named.update(str(v) for v in [*node.args, *node.kwargs.values()] if isinstance(v, torch.device))
+    return named
+
+
+def serving_mesh(record: dict, checkpoint: Path, work: Path, cards: int = 1) -> dict:
+    """Phase 19 (the module docstring): 19a ``Predictor`` over a model axis,
+    19b the multi-device trial artifact, 19c ``dryrun_multichip``, over
+    ``cards`` cards (card 0 repeated where a mesh has more devices).
+    Returns each part's kernel launches."""
+    import numpy as np
+    import torch
+
+    from sensorium_tpu_torch.infer.export import export_trial, load_exported, save_exported
+    from sensorium_tpu_torch.infer.predictor import Predictor, assemble_trial_stack, replica_forwards
+    from sensorium_tpu_torch.ops import dw_kernels
+    from sensorium_tpu_torch.parallel import mesh as mesh_lib
+    from sensorium_tpu_torch.parallel.tensor import LocalSlices
+    from sensorium_tpu_torch.tools.dryrun import dryrun_multichip
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - start
+
+    result: dict = {"card": nvidia_smi_line(), "cards": cards}
+    launches: dict = {}
+    rng = np.random.default_rng(SEED)  # phase 4's requests
+    warm = make_trial(rng)
+    trials = [make_trial(rng) for _ in range(REQUESTS)]
+    one = Predictor(checkpoint, chunk_size=CHUNK, length_bucket=EXPORT_BUCKET, device="cuda")
+    windows = len(one.indexes_generator.valid_anchors(TRIAL_LENGTH))
+    same = windows // CHUNK * CHUNK  # frames [0, same) see only windows of full chunks
+    one.predict_trial(*warm, mouse_index=0)
+    want, one_s = timed(lambda: [one.predict_trial(*trial, mouse_index=0) for trial in trials])
+    scale = max(float(np.max(np.abs(w))) for w in want)
+    result["one_card_windows_per_second"] = REQUESTS * windows / one_s
+    staged = one.stage_trial(*warm)
+    stack = assemble_trial_stack(*staged.trial_args, 64, 64, 0.0)
+    chunk_windows = staged.windows[:CHUNK]
+
+    def enqueue_ms(predictor) -> dict:
+        """One chunk's replica forwards: the host's milliseconds until they
+        are queued, and until every card has run them (medians of 5)."""
+        models = [model for model, _ in predictor.replicas]
+        inputs = [stack.to(device) for _, device in predictor.replicas]
+        host, wall = [], []
+        with torch.inference_mode():
+            for _ in range(6):
+                for card in range(cards):
+                    torch.cuda.synchronize(card)
+                start = time.perf_counter()
+                replica_forwards(models, inputs, chunk_windows, 0)
+                queued = time.perf_counter()
+                for card in range(cards):
+                    torch.cuda.synchronize(card)
+                host.append((queued - start) * 1e3)
+                wall.append((time.perf_counter() - start) * 1e3)
+        return {"host_ms": statistics.median(host[1:]), "wall_ms": statistics.median(wall[1:])}
+
+    result["one_card_chunk"] = enqueue_ms(one)
+
+    # 19a: Predictor over (data, model) meshes.
+    for num_data, num_model in SERVE_MESHES:
+        label = f"data{num_data}_model{num_model}"
+        mesh = mesh_lib.create_mesh(num_data, num_model, devices=mesh_devices(num_data * num_model, cards))
+        sharded = Predictor(checkpoint, chunk_size=CHUNK, mesh=mesh)
+        reference = one if num_data == 1 else Predictor(checkpoint, chunk_size=CHUNK // num_data, device="cuda")
+        sharded.predict_trial(*warm, mouse_index=0)
+        reset_launches()
+        got, sharded_s = timed(lambda: [sharded.predict_trial(*trial, mouse_index=0) for trial in trials])
+        counted = dict(dw_kernels.LAUNCHES)
+        expected = [reference.predict_trial(*trial, mouse_index=0) for trial in trials] if num_data > 1 else want
+        diff_same = max(float(np.max(np.abs(g[:, :same] - e[:, :same]))) for g, e in zip(got, expected))
+        diff_rest = max(float(np.max(np.abs(g[:, same:] - e[:, same:]))) for g, e in zip(got, expected))
+        diff_one = max(float(np.max(np.abs(g - w))) for g, w in zip(got, want))
+        module = sharded.replicas[0][0]
+        slices = {name: [{"device": str(piece.device), "bytes": piece.numel() * piece.element_size()} for piece in sub]
+                  for name, sub in module.named_modules() if isinstance(sub, LocalSlices)}
+        whole_bytes = {name: sum(p["bytes"] for p in pieces) for name, pieces in slices.items()}
+        forwards = REQUESTS * chunk_forwards(windows, CHUNK, num_data)
+        chunk_ms = enqueue_ms(sharded)
+        entry = {"mesh": dict(mesh.shape), "devices": [str(d) for d in mesh.devices], "replicas": len(sharded.replicas),
+                 "chunk": chunk_ms,
+                 "windows_per_second": REQUESTS * windows / sharded_s, "reference_chunk": reference.chunk_size,
+                 "max_abs_diff_same_chunks": diff_same, "max_abs_diff_other_frames": diff_rest,
+                 "max_abs_diff_one_card_chunk_32": diff_one, "max_abs_one_card": scale,
+                 "relative_same_chunks": diff_same / scale, "sliced_bytes": slices, "whole_bytes": whole_bytes,
+                 "chunk_forwards": forwards, "launches": counted}
+        result[label] = entry
+        readout = slices["readout_kernel"]
+        print(f"serve mesh 19a: {mesh.shape} over {entry['devices']}: {REQUESTS} requests x {windows} windows at "
+              f"{entry['windows_per_second']:.1f} windows/s (one card, chunk {CHUNK}: "
+              f"{result['one_card_windows_per_second']:.1f}); against one card at chunk {reference.chunk_size} max "
+              f"|diff| on frames 0-{same - 1} {diff_same:.4g} (relative {diff_same / scale:.3g}, tolerance "
+              f"{EXPORT_REL_TOL}), on frames {same}-{TRIAL_LENGTH - 1} {diff_rest:.4g}; against one card at chunk "
+              f"{CHUNK} on every frame {diff_one:.4g} (relative {diff_one / scale:.3g}); readout_kernel "
+              f"{whole_bytes['readout_kernel'] / 1e9:.4f} GB as {[(p['device'], p['bytes']) for p in readout]}, "
+              f"cortex_2.kernel {[(p['device'], p['bytes']) for p in slices['cortex_2.kernel']]}; one chunk's "
+              f"forwards queued by the host in {chunk_ms['host_ms']:.1f} ms, done in {chunk_ms['wall_ms']:.1f} ms "
+              f"(one card's chunk-32 forward: {result['one_card_chunk']['host_ms']:.1f} / "
+              f"{result['one_card_chunk']['wall_ms']:.1f} ms); launches {counted} over {forwards} window forwards",
+              flush=True)
+        for i, out in enumerate(got):
+            if out.shape != want[i].shape or not np.all(np.isfinite(out)):
+                fail(f"serve mesh 19a {label}: request {i} gave {out.shape}, expected finite {want[i].shape}")
+        if not diff_same <= EXPORT_REL_TOL * scale:
+            fail(f"serve mesh 19a {label}: {diff_same / scale:.3g} relative from one card, tolerance {EXPORT_REL_TOL}")
+        if any(len(pieces) != num_model or len({p["bytes"] for p in pieces}) != 1 for pieces in slices.values()):
+            fail(f"serve mesh 19a {label}: the sliced weights are not {num_model} equal slices: {slices}")
+        check_forward_launches(f"serve mesh 19a {label}", counted, forwards)
+        launches[f"serve_mesh_{label}"] = counted
+        del sharded, reference
+        torch.cuda.empty_cache()
+
+    # 19b: the trial program over a data mesh as one artifact.
+    padded = math.ceil(TRIAL_LENGTH / EXPORT_BUCKET) * EXPORT_BUCKET
+    pad = padded - TRIAL_LENGTH
+    body_calls = scan_body_calls(padded // CHUNK)
+    one_card = work / "trial.pt2"  # phase 17's trial artifact
+    if not one_card.exists():  # --cards runs phase 19 without phase 17
+        save_exported(one_card, export_trial(one, 0, src_hw=tuple(FIT_VIDEO)))
+    single_bytes, single_stored, single_parts = one_card.stat().st_size, stored_bytes(one_card), archive_parts(one_card)
+    result["one_card_artifact"] = {"bytes": single_bytes, "stored_tensor_bytes": single_stored, "parts": single_parts}
+    for num_data, num_model in ARTIFACT_MESHES + (((2, 2),) if cards > 1 else ()):
+        label = f"artifact_data{num_data}_model{num_model}"
+        mesh = mesh_lib.create_mesh(num_data, num_model, devices=mesh_devices(num_data * num_model, cards))
+        live = Predictor(checkpoint, chunk_size=CHUNK, length_bucket=EXPORT_BUCKET, mesh=mesh)
+        path = work / f"{label}.pt2"
+        exported, export_s = timed(lambda: export_trial(live, 0, src_hw=tuple(FIT_VIDEO)))
+        named = graph_devices(exported.program)
+        _, save_s = timed(lambda: save_exported(path, exported))
+        del exported
+        stored, parts = stored_bytes(path), archive_parts(path)
+        artifact, load_s = timed(lambda: load_exported(path, device="cuda"))
+
+        def through_artifact(video, behavior, pupil):
+            args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+                np.pad(video.transpose(2, 0, 1), ((0, pad), (0, 0), (0, 0))), np.pad(behavior, ((0, 0), (0, pad))),
+                np.pad(pupil, ((0, 0), (0, pad))))]
+            with torch.inference_mode():
+                out = artifact(*args, torch.tensor(TRIAL_LENGTH, dtype=torch.int32, device="cuda"))
+            return out[:, :TRIAL_LENGTH].cpu().numpy()
+
+        through_artifact(*warm)
+        reset_launches()
+        got, artifact_s = timed(lambda: [through_artifact(*trial) for trial in trials])
+        counted = dict(dw_kernels.LAUNCHES)
+        expected, live_s = timed(lambda: [live.predict_trial(*trial, mouse_index=0) for trial in trials])
+        diff_same = max(float(np.max(np.abs(g[:, :same] - e[:, :same]))) for g, e in zip(got, expected))
+        diff_rest = max(float(np.max(np.abs(g[:, same:] - e[:, same:]))) for g, e in zip(got, expected))
+        forwards = REQUESTS * body_calls * num_data
+        entry = {"mesh": dict(mesh.shape), "devices": [str(d) for d in mesh.devices], "nr_devices": artifact.nr_devices,
+                 "graph_devices": sorted(named), "trace_seconds": export_s, "save_seconds": save_s,
+                 "load_seconds": load_s, "bytes": path.stat().st_size, "one_card_bytes": single_bytes,
+                 "stored_tensor_bytes": stored, "one_card_stored_tensor_bytes": single_stored, "parts": parts,
+                 "artifact_windows_per_second": REQUESTS * windows / artifact_s,
+                 "live_windows_per_second": REQUESTS * windows / live_s, "max_abs_diff_same_chunks": diff_same,
+                 "max_abs_diff_other_frames": diff_rest, "relative_same_chunks": diff_same / scale,
+                 "scan_body_calls_per_request": body_calls, "launches": counted}
+        result[label] = entry
+        print(f"serve mesh 19b: the trial artifact over {mesh.shape} ({entry['devices']}, nr_devices "
+              f"{artifact.nr_devices}, graph devices {sorted(named)}): traced in {export_s:.1f} s, written in "
+              f"{save_s:.1f} s, {entry['bytes'] / 1e9:.4f} GB (the one-card trial artifact: {single_bytes / 1e9:.4f} "
+              f"GB), its stored tensors {stored:,} B (one card's: {single_stored:,} B), its archive by part {parts} "
+              f"(one card's: {single_parts}), loaded in "
+              f"{load_s:.1f} s; {REQUESTS} requests at {entry['artifact_windows_per_second']:.1f} windows/s, the "
+              f"live sharded Predictor at {entry['live_windows_per_second']:.1f}; against it max |diff| on frames "
+              f"0-{same - 1} {diff_same:.4g} (relative {diff_same / scale:.3g}, tolerance {EXPORT_REL_TOL}), on "
+              f"frames {same}-{TRIAL_LENGTH - 1} {diff_rest:.4g}; launches {counted} ({body_calls} scan body calls "
+              f"x {num_data} replica forwards a request)", flush=True)
+        for i, out in enumerate(got):
+            if out.shape != expected[i].shape or not np.all(np.isfinite(out)):
+                fail(f"serve mesh 19b {label}: request {i} gave {out.shape}, expected finite {expected[i].shape}")
+        if named != {str(d) for d in mesh.devices}:
+            fail(f"serve mesh 19b {label}: the graph names {sorted(named)}, the mesh {entry['devices']}")
+        if stored > single_stored:
+            fail(f"serve mesh 19b {label}: the artifact stores {stored:,} B of tensors, the one-card one "
+                 f"{single_stored:,} B: a replica's weights are stored twice")
+        if artifact.nr_devices != num_data * num_model or not diff_same <= EXPORT_REL_TOL * scale:
+            fail(f"serve mesh 19b {label}: nr_devices {artifact.nr_devices}, {diff_same / scale:.3g} relative from "
+                 "the live sharded Predictor")
+        check_forward_launches(f"serve mesh 19b {label}", counted, forwards)
+        launches[f"serve_mesh_{label}"] = counted
+        del artifact, live
+        path.unlink()
+        torch.cuda.empty_cache()
+    del one
+    torch.cuda.empty_cache()
+
+    # 19c: one sharded flagship step from the dry run's entry point.
+    ranks = DRYRUN_RANKS if cards == 1 else min(cards, 4)
+    dry, dry_s = timed(lambda: dryrun_multichip(ranks, flagship=True, share_card=cards == 1))
+    result["dryrun"] = {**dry, "seconds": dry_s}
+    print(f"serve mesh 19c: dryrun_multichip({ranks}) over {'one card shared' if cards == 1 else f'{ranks} cards'}"
+          f": mesh {dry['mesh']}, loss {dry['loss']!r} against unsharded {dry['unsharded_loss']!r}, the sharded "
+          f"step {dry['step_seconds']:.2f} s (first step), the call {dry_s:.1f} s; launches a rank "
+          f"{dry['launches']}", flush=True)
+    launches["dryrun"] = dry["launches"]
+    record["serving_mesh"] = result
+    return launches
+
+
+def cards_only(record: dict, out_dir: Path) -> None:
+    """``--cards``: the parts that need two cards or more, alone: 18c on
+    phase 11's dataset and phase 15's configs, then phase 19 over 2-4 cards
+    from a checkpoint of the flagship's seeded weights; fails with fewer
+    than two cards."""
+    import os
+
+    import torch
+
+    from sensorium_tpu_torch.engine.model import MouseModel
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        fail(f"--cards needs two cards or more; {cards} visible")
+    root = out_dir / "fit_data"
+    write_fit_dataset(root)
+    os.environ["SENSORIUM_FOLD_ASSIGNMENT"] = "trial"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            work = Path(work)
+            write_cli_configs(work / "train_cli_configs")
+            mesh_tp_cards(record, root, work)
+            model = MouseModel(FLAGSHIP_TRAIN_ARGUS, device="cuda")
+            model.set_ema(EMA_DECAY)
+            model.build_state(seed=SEED, learning_rate=FLAGSHIP_TRAIN_ARGUS["optimizer"][1]["lr"])
+            model.save(work / EXPORT_CHECKPOINT)
+            del model
+            torch.cuda.empty_cache()
+            serving_mesh(record, work / EXPORT_CHECKPOINT, work, cards=min(cards, 4))
+    finally:
+        shutil.rmtree(root)
+
+
 def _summed(rows: list[dict], name: str) -> dict:
     """Times and bound of ``name`` summed over the flagship blocks' calls (bf16 rows)."""
     flagship = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16" and r["blocks"]]
@@ -2988,9 +3280,10 @@ def main() -> int:
                                                  "tp_reference", *(f"tp_rank{r}" for r in range(TP_WORLD))],
                         help=argparse.SUPPRESS)  # phases 16a's and 18a's child processes, which write into --out
     parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
-    parser.add_argument("--tp-cards", action="store_true",
-                        help="run phase 18c alone (cli.train over a model axis of every card against one card, "
-                             "in fp32); fails with fewer than two cards")
+    parser.add_argument("--cards", action="store_true",
+                        help="run only the parts that need several cards: 18c (cli.train over a model axis of "
+                             "every card against one card, in fp32) and phase 19 over 2-4 cards (serving over a "
+                             "model axis, the multi-device artifact, the dry run); fails with fewer than two cards")
     args = parser.parse_args()
     try:
         import torch
@@ -3037,11 +3330,11 @@ def main() -> int:
     record["build_seconds"] = build_s
 
     args.out.mkdir(parents=True, exist_ok=True)
-    if args.tp_cards:
-        tp_cards_only(record, args.out)
+    if args.cards:
+        cards_only(record, args.out)
         (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
         print(f"device: {smi}")
-        print("tp cards: only phase 18c ran (--tp-cards)", flush=True)
+        print("cards: only phase 18c and phase 19 ran", flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return 0
@@ -3083,6 +3376,10 @@ def main() -> int:
         path_launches.update(mesh_tp(record, work))
         mesh_tp_cards(record, fit_root, work)
         print(f"tp: 18a, 18b and 18c took {time.perf_counter() - start:.1f} s", flush=True)
+        start = time.perf_counter()
+        path_launches.update(serving_mesh(record, work / EXPORT_CHECKPOINT, work))
+        record["serving_mesh"]["phase_seconds"] = time.perf_counter() - start
+        print(f"serve mesh: phase 19 took {record['serving_mesh']['phase_seconds']:.1f} s", flush=True)
     shutil.rmtree(fit_root)  # made anew from the seed by every run
 
     summary = kernel_summary(rows + backward_rows, train_launches, serve_launches, fused_rows, fused_launches,

@@ -17,9 +17,12 @@ Typical flows::
     # and checked on the CPU
     python -m sensorium_tpu_torch.cli.export -m CKPT --mouse 1 --trial --check --device cpu
 
+    # the trial program over a 4-way data mesh: one artifact over cards 0-3
+    python -m sensorium_tpu_torch.cli.export -m CKPT --mouse 1 --trial --mesh-data 4 --check
+
 The model is loaded, traced and checked on ``--device`` (the card unless
-``--device cpu``). ``--mesh-data N`` (a multi-device artifact) is not
-ported (ROADMAP.md §A.4b) and raises ``NotImplementedError``.
+``--device cpu``). ``--mesh-data N`` needs N visible cards; with ``--device
+cpu`` N copies of the CPU stand in for them.
 """
 
 from __future__ import annotations
@@ -67,7 +70,8 @@ def parse_arguments(argv=None):
     )
     parser.add_argument(
         "--mesh-data", type=int, default=0,
-        help="a multi-device --trial artifact over an N-way data mesh: not ported (ROADMAP.md §A.4b)",
+        help="export the --trial program as one artifact over an N-way data mesh of cards 0..N-1 (default 0: one "
+             "device)",
     )
     return parser.parse_args(argv)
 

@@ -91,8 +91,10 @@ class MouseModel:
     def __init__(self, params: dict, device: str | torch.device = "cuda", mesh: mesh_lib.Mesh | None = None):
         if mesh is not None:
             if len(mesh.devices) != 1:
-                raise ValueError(f"a training mesh holds one device a process, this one {mesh.devices}: "
-                                 "start one process a card (cli.train does)")
+                raise ValueError(f"a training mesh holds one device a process, this one {mesh.devices}: the port "
+                                 "trains one card a process, over a process group (cli.train --mesh data or "
+                                 "--mesh data,model starts a rank a card); a mesh of one process's cards serves "
+                                 "through Predictor(mesh=)")
             device = mesh.device
         self.device = resolve_device(device)
         self.mesh = mesh

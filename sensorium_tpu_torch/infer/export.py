@@ -19,9 +19,19 @@ Properties of the artifact:
   (``torch.export.passes.move_to_device_pass``), as JAX's artifact carries
   one lowering for each platform.
 
-An artifact runs on one device. A multi-device artifact (``mesh_data``, a
-``Predictor(mesh=)`` of several replicas) raises ``NotImplementedError``
-(ROADMAP.md §A.4b).
+The trial program of a ``Predictor(mesh=)`` (``mesh_data`` N: a data mesh
+of N devices) is one multi-device artifact: each chunk's windows are split
+over the replicas, one a data index, each over its model group's cards
+with the cortex and readout weights sliced across them (the live
+``replica_forwards``); the blend's accumulators stay on the first card.
+Its weights are stored once, those of the first replica: the program
+copies them to the other replicas' cards at the start of each call and
+runs each replica with ``torch.func.functional_call``. The metadata names
+the mesh, ``nr_devices`` (replica x data x model) and the distinct devices
+it was traced on; ``load_exported`` maps those onto the serving host's
+cards (``move_to_device_pass`` with a mapping) and raises when fewer are
+visible. Traced on the CPU, N copies of ``cpu`` stand in for N devices, so
+such an artifact runs on one card.
 
 This module imports the model, the engine and the predictor only inside the
 functions that export; loading and checking an artifact import none of them.
@@ -29,6 +39,7 @@ functions that export; loading and checking an artifact import none of them.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -41,7 +52,7 @@ import sensorium_tpu_torch.ops.dw_kernels  # noqa: F401  (registers the sensoriu
 
 EXPORT_SUFFIX = ".pt2"
 PLATFORMS = ("cuda", "cpu")
-_META = "sensorium.json"  # the artifact's extra file: its platforms and trace device
+_META = "sensorium.json"  # the artifact's extra file: its platforms, mesh and trace devices
 
 
 def _check_platforms(platforms) -> tuple[str, ...]:
@@ -49,12 +60,6 @@ def _check_platforms(platforms) -> tuple[str, ...]:
     if not platforms or any(p not in PLATFORMS for p in platforms):
         raise ValueError(f"platforms must be a non-empty subset of {PLATFORMS}, got {platforms}")
     return platforms
-
-
-def _refuse_mesh(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: a multi-device serving artifact is not ported yet (ROADMAP.md §A.4b); "
-        "export a single-device artifact and run one a card")
 
 
 def _frozen(nn_module: torch.nn.Module, frames: int, height: int, width: int) -> torch.nn.Module:
@@ -78,12 +83,23 @@ class _Forward(torch.nn.Module):
 
 
 class _Exported:
-    """A traced program and its platforms, before it is saved."""
+    """A traced program, its platforms and the devices it was traced on (in
+    mesh order; a mesh's shape, or None), before it is saved."""
 
-    def __init__(self, program: torch.export.ExportedProgram, platforms: tuple[str, ...], device: torch.device):
+    def __init__(self, program: torch.export.ExportedProgram, platforms: tuple[str, ...], devices,
+                 mesh_shape: dict | None = None):
         self.program = program
         self.platforms = platforms
-        self.device = device
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.mesh_shape = mesh_shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def nr_devices(self) -> int:
+        return len(self.devices)
 
 
 def export_forward(
@@ -121,18 +137,27 @@ def export_forward(
             _Forward(_frozen(nn_module, frames, height, width), mouse_index), (example,), dynamic_shapes=({0: batch},)
         )
     _check_symbolic(program, [(0, 0)])
-    return _Exported(program, platforms, model.device)
+    return _Exported(program, platforms, [model.device])
+
+
+def _call_with(module: torch.nn.Module, weights: dict, batch: torch.Tensor, mouse_index: int) -> torch.Tensor:
+    return torch.func.functional_call(module, weights, (batch,), {"mouse_index": mouse_index})
 
 
 class _TrialProgram(torch.nn.Module):
     """Whole-trial inference over a time axis padded to a multiple of the
-    bucket (see ``export_trial``)."""
+    bucket (see ``export_trial``). ``placements``: for each replica after
+    the first, the device of each of the first replica's parameters and
+    buffers there; ``devices``: each replica's first card."""
 
-    def __init__(self, predictor, nn_module: torch.nn.Module, mouse_index: int):
+    def __init__(self, predictor, nn_module: torch.nn.Module, mouse_index: int, placements: list[dict],
+                 devices: list[torch.device]):
         super().__init__()
         gen = predictor.indexes_generator
         proc = predictor.inputs_processor
         self.model = nn_module
+        self.placements = placements
+        self.devices = devices
         self.mouse_index = mouse_index
         self.chunk = predictor.chunk_size
         self.behind, self.ahead, self.step, self.size = gen.behind, gen.ahead, gen.step, gen.size
@@ -149,6 +174,12 @@ class _TrialProgram(torch.nn.Module):
         padded_len = video.shape[0]
         device = video.device
         trial_inputs = assemble_trial_stack(video, behavior, pupil_center, self.height, self.width, self.fill)
+        # The other replicas' weights: the stored ones, copied to their cards once a call.
+        weights = {**dict(self.model.named_parameters()), **dict(self.model.named_buffers())}
+        models = [self.model] + [
+            functools.partial(_call_with, self.model, {name: t.to(placement[name]) for name, t in weights.items()})
+            for placement in self.placements]
+        replica_inputs = [trial_inputs.to(d) for d in self.devices]
         # One anchor per padded frame; rows past the true anchor range carry
         # zero weight, as in JAX's trial program.
         anchors = self.behind + torch.arange(padded_len, device=device)
@@ -161,7 +192,7 @@ class _TrialProgram(torch.nn.Module):
         def body(carry, chunk):
             resp_acc, blend_acc = carry
             flat, resp, blend = chunk_updates(
-                self.model, trial_inputs, chunk[0], self.blend_weights, self.mouse_index, chunk[1]
+                models, replica_inputs, chunk[0], self.blend_weights, self.mouse_index, chunk[1]
             )
             return (resp_acc.index_add(1, flat, resp), blend_acc.index_add(0, flat, blend)), flat.new_zeros(())
 
@@ -193,11 +224,11 @@ def export_trial(
     where ``Tp = length_bucket * k`` for any k >= 1 and ``length <= Tp`` is
     the true trial length: callers zero-pad the time axis and slice the
     result to ``[:, :length]``. ``src_hw`` fixes the raw frame size, centred
-    on the canvas like ``StackInputsProcessor``.
+    on the canvas like ``StackInputsProcessor``. A ``Predictor(mesh=)``
+    gives the multi-device program (module docstring): the inputs on the
+    first card, the chunk's windows split over the replicas.
     """
     platforms = _check_platforms(platforms)
-    if len(predictor.replicas) > 1:
-        raise _refuse_mesh("export_trial of a Predictor(mesh=) of several replicas")
     chunk, bucket = predictor.chunk_size, predictor.length_bucket
     if chunk < 1 or bucket < 1:
         raise ValueError(f"chunk_size ({chunk}) and length_bucket ({bucket}) must be positive")
@@ -210,7 +241,8 @@ def export_trial(
     if src_h > height or src_w > width:
         raise ValueError(f"src_hw {src_hw} exceeds the model canvas ({height}x{width})")
     frozen = _frozen(predictor.model, predictor.indexes_generator.size, height, width)
-    program = _TrialProgram(predictor, frozen, mouse_index)
+    program = _TrialProgram(predictor, frozen, mouse_index, _placements(frozen, predictor.replicas[1:]),
+                            [device for _, device in predictor.replicas])
     device = predictor.device
     # Two buckets: export specialises a dimension it sees at 1.
     padded = 2 * bucket
@@ -227,7 +259,21 @@ def export_trial(
             program, example, dynamic_shapes=({0: time}, {1: time}, {1: time}, None)
         )
     _check_symbolic(exported, [(0, 0), (1, 1), (2, 1)])
-    return _Exported(exported, platforms, device)
+    mesh = predictor.mesh
+    if mesh is None:
+        return _Exported(exported, platforms, [device])
+    return _Exported(exported, platforms, mesh.devices, dict(mesh.shape))
+
+
+def _placements(frozen: torch.nn.Module, replicas: list) -> list[dict]:
+    """For each ``(module, first card)`` of ``replicas``, where each of
+    ``frozen``'s parameters and buffers lies in it (a buffer only the frozen
+    copy holds, a position encoding, on the replica's first card)."""
+    out = []
+    for module, device in replicas:
+        held = {name: t.device for name, t in [*module.named_parameters(), *module.named_buffers()]}
+        out.append({name: held.get(name, device) for name, _ in [*frozen.named_parameters(), *frozen.named_buffers()]})
+    return out
 
 
 def _input_values(program: torch.export.ExportedProgram) -> list:
@@ -248,7 +294,9 @@ def save_exported(path: Path | str, exported: _Exported) -> Path:
     """Atomic write of an artifact: a ``.tmp`` file, then a rename."""
     path = Path(path)
     buffer = io.BytesIO()
-    meta = {"platforms": list(exported.platforms), "traced_on": exported.device.type}
+    meta = {"platforms": list(exported.platforms), "traced_on": exported.device.type,
+            "nr_devices": exported.nr_devices, "mesh": exported.mesh_shape,
+            "devices": list(dict.fromkeys(str(d) for d in exported.devices))}
     torch.export.save(exported.program, buffer, extra_files={_META: json.dumps(meta)})
     tmp = path.with_name(path.name + ".tmp")
     tmp.write_bytes(buffer.getvalue())
@@ -262,21 +310,49 @@ def _read(path: Path | str) -> tuple[torch.export.ExportedProgram, dict]:
     return program, json.loads(extra[_META])
 
 
-def _load(path: Path | str, device: str | torch.device) -> tuple[torch.export.ExportedProgram, torch.device]:
+def _placement(traced: list[str], device: torch.device) -> str | dict[str, str]:
+    """Where ``move_to_device_pass`` puts the artifact traced on the
+    ``traced`` devices: a one-device artifact wholly on ``device`` (its
+    graph may name "cuda:0" where it was traced on "cuda"); a multi-device
+    one as a mapping onto the CPU, or onto cards 0 to n-1 (``device`` a card
+    type without an index)."""
+    if len(traced) == 1:
+        return str(device)
+    if device.type == "cpu":
+        return {name: str(device) for name in traced}
+    if device.index is not None:
+        raise ValueError(f"the artifact runs on {len(traced)} cards {traced}: pass 'cuda', not {device}")
+    visible = torch.cuda.device_count()
+    if visible < len(traced):
+        raise ValueError(f"the artifact was exported for {len(traced)} cards {traced}; only {visible} "
+                         "are visible on this host")
+    return {name: f"cuda:{i}" for i, name in enumerate(traced)}
+
+
+def _load(path: Path | str, device: str | torch.device) -> tuple[torch.export.ExportedProgram, torch.device, dict]:
     from sensorium_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
     program, meta = _read(path)
     if device.type not in meta["platforms"]:
         raise ValueError(f"the artifact runs on {meta['platforms']}, not on {device.type}")
-    return move_to_device_pass(program, device), device
+    placement = _placement(meta.get("devices", [meta["traced_on"]]), device)
+    first = torch.device(placement if isinstance(placement, str) else next(iter(placement.values())))
+    return move_to_device_pass(program, placement), first, meta
 
 
 def load_exported(path: Path | str, device: str | torch.device = "cuda") -> torch.nn.Module:
     """An artifact as a callable module on ``device`` (moved there if it was
-    traced on the other device). Raises if ``device`` is not in the
-    artifact's platforms, or names CUDA and there is no card."""
-    return _load(path, device)[0].module()
+    traced on the other device). A multi-device artifact's devices are
+    mapped onto cards 0 to n-1 (``device`` "cuda") or onto the CPU; its
+    inputs go to the first. The module's ``nr_devices`` and ``mesh`` are
+    the artifact's. Raises if the device is not in the artifact's
+    platforms, names CUDA and there is no card, names one card for a
+    multi-device artifact, or fewer cards are visible than it needs."""
+    program, _, meta = _load(path, device)
+    module = program.module()
+    module.nr_devices, module.mesh = meta.get("nr_devices", 1), meta.get("mesh")
+    return module
 
 
 def export_model_file(
@@ -297,9 +373,10 @@ def export_model_file(
     ``trial=False`` exports the window forward (:func:`export_forward`);
     ``trial=True`` the whole-trial program (:func:`export_trial`, which
     needs ``mouse_index``). The model is loaded and traced on ``device``.
-    ``mesh_data`` 0 gives a single-device artifact; 1 and negatives raise
-    ``ValueError``, and ``mesh_data >= 2`` (a multi-device artifact)
-    ``NotImplementedError``.
+    ``mesh_data`` 0 gives a single-device artifact; ``mesh_data >= 2`` a
+    multi-device trial artifact over an N-way data mesh: cards 0 to N-1
+    (fewer visible raises ``ValueError``), or N copies of the CPU with
+    ``device="cpu"``; 1 and negatives raise ``ValueError``.
     """
     model_path = Path(model_path)
     if mesh_data < 0 or mesh_data == 1:
@@ -307,15 +384,14 @@ def export_model_file(
     if mesh_data > 1 and not trial:
         raise ValueError("mesh_data applies to trial exports only (trial=True); the window-forward artifact is "
                          "single-device")
-    if mesh_data > 1:
-        raise _refuse_mesh(f"mesh_data={mesh_data}")
+    mesh = _data_mesh(mesh_data, device) if mesh_data else None
     if trial:
         if mouse_index is None:
             raise ValueError("trial export requires a mouse_index")
         from sensorium_tpu_torch.infer.predictor import Predictor
 
         predictor = Predictor(model_path, blend_weights=blend_weights, chunk_size=chunk_size,
-                              length_bucket=length_bucket, device=device)
+                              length_bucket=length_bucket, device=device, mesh=mesh)
         exported = export_trial(predictor, mouse_index, src_hw=src_hw, platforms=platforms)
         kind = f".mouse{mouse_index}.trial"
     else:
@@ -334,10 +410,24 @@ def export_model_file(
         "platforms": list(exported.platforms),
         "mouse_index": mouse_index,
         "trial": trial,
-        "nr_devices": 1,
+        "nr_devices": exported.nr_devices,
+        "mesh": exported.mesh_shape,
         "input_shapes": [[str(d) for d in v.shape] for v in _input_values(program)],
         "output_shape": [str(d) for d in _output_values(program)[0].shape],
     }
+
+
+def _data_mesh(count: int, device: str | torch.device):
+    """A ``count``-way data mesh: cards 0 to count-1, or count copies of the CPU."""
+    from sensorium_tpu_torch.parallel.mesh import create_mesh
+
+    if torch.device(device).type == "cpu":
+        return create_mesh(num_data=count, devices=["cpu"] * count)
+    visible = torch.cuda.device_count()
+    if visible < count:
+        raise ValueError(f"mesh_data={count} needs {count} local devices to trace the sharded program; only "
+                         f"{visible} are visible on this host")
+    return create_mesh(num_data=count, devices=[f"cuda:{i}" for i in range(count)])
 
 
 def _output_values(program: torch.export.ExportedProgram) -> list:
@@ -366,7 +456,7 @@ def check_artifact(path: Path | str, batch: int = 1, device: str | torch.device 
     ``batch`` buckets, with the length set to the padded time axis. The
     symbolic dimensions are the program's (``range_constraints``).
     """
-    program, device = _load(path, device)
+    program, device, _ = _load(path, device)
     args = []
     lead_dim = None
     for value in _input_values(program):

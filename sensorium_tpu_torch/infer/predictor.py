@@ -28,15 +28,19 @@ by blending overlapping windows at every valid anchor (stride 1), with
   the bucket. ``chunk_updates`` is the chunk step that the live path and the
   export share.
 * ``Predictor(..., mesh=mesh)``, a mesh of this process's cards
-  (``parallel.mesh.create_mesh()``): one eval replica a card; each chunk's
-  windows are split over the replicas and their predictions gathered onto
-  the first card for the blend. Trials spread over hosts through
-  ``predict_mouse_split``'s ``trial_shard`` instead.
+  (``parallel.mesh.create_mesh()``, ``create_mesh(num_model=2)``,
+  ``create_hybrid_mesh(...)``): one eval replica a data index (replica x
+  data), each over its model group's cards with the cortex and readout
+  weights sliced across them (``parallel/tensor.py`` ``local_replicas``);
+  each chunk's windows are split over the replicas, every replica's
+  forward is queued, then their predictions are gathered onto the first
+  card for the blend. Without a mesh there is one replica: the same code.
+  Trials spread over hosts through ``predict_mouse_split``'s
+  ``trial_shard`` instead.
 """
 
 from __future__ import annotations
 
-import copy
 from pathlib import Path
 from typing import NamedTuple
 
@@ -51,6 +55,7 @@ from sensorium_tpu_torch.data.mouse_data import get_mouse_data
 from sensorium_tpu_torch.engine.model import load_model
 from sensorium_tpu_torch.ops.conv import set_matmul_policy
 from sensorium_tpu_torch.parallel import mesh as mesh_lib
+from sensorium_tpu_torch.parallel import tensor as tensor_lib
 from sensorium_tpu_torch.utils.device import fetch_to_host, resolve_device
 
 
@@ -109,10 +114,11 @@ class Predictor:
     and there is no card.
 
     ``mesh``: a mesh of this process's devices; the model is loaded onto the
-    first and copied to the others, and ``device`` is not read. A
-    ``chunk_size`` that does not divide over it raises, and so does a mesh
-    over several processes (run one ``Predictor`` a host and spread the
-    trials with ``trial_shard`` instead).
+    first and copied to each model group (``replicas``: one ``(module, first
+    card)`` a data index), and ``device`` is not read. A ``chunk_size`` that
+    does not divide over the replicas raises, and so does a mesh over
+    several processes (run one ``Predictor`` a host and spread the trials
+    with ``trial_shard`` instead).
     """
 
     def __init__(
@@ -135,7 +141,8 @@ class Predictor:
         model = load_model(model_path, device=device)
         self._setup(model.state.eval_model, model.params, blend_weights, chunk_size, length_bucket, model.device)
         if mesh is not None:
-            self.replicas += [(copy.deepcopy(self.model).to(d).eval(), torch.device(d)) for d in mesh.devices[1:]]
+            self.replicas = tensor_lib.local_replicas(self.model, mesh)
+        self.mesh = mesh
 
     @classmethod
     def from_module(
@@ -152,6 +159,7 @@ class Predictor:
         ``inputs_processor`` and ``responses_processor``."""
         predictor = cls.__new__(cls)
         predictor._setup(nn_module, argus_params, blend_weights, chunk_size, length_bucket, resolve_device(device))
+        predictor.mesh = None
         return predictor
 
     def _setup(self, nn_module, argus_params: dict, blend_weights: str, chunk_size: int, length_bucket: int,
@@ -242,16 +250,11 @@ class Predictor:
                 *staged.trial_args, height, width, self.inputs_processor.pad_fill_value
             )
         blend_acc = torch.zeros(staged.length, dtype=torch.float32, device=self.device)
+        models = [model for model, _ in self.replicas]
         replica_inputs = [trial_inputs.to(device) for _, device in self.replicas]  # once a trial
         for start in range(0, staged.windows.shape[0], self.chunk_size):
             windows = staged.windows[start : start + self.chunk_size]  # (C, S)
-            if len(self.replicas) == 1:
-                flat, resp, blend = chunk_updates(self.model, trial_inputs, windows, self.blend_weights, mouse_index)
-            else:
-                preds = [_window_forward(model, inputs, part.to(device), mouse_index).to(self.device)
-                         for (model, device), inputs, part in zip(self.replicas, replica_inputs,
-                                                                 windows.tensor_split(len(self.replicas))) if len(part)]
-                flat, resp, blend = blend_updates(torch.cat(preds), windows, self.blend_weights)
+            flat, resp, blend = chunk_updates(models, replica_inputs, windows, self.blend_weights, mouse_index)
             resp_acc.index_add_(1, flat, resp)
             blend_acc.index_add_(0, flat, blend)
         return resp_acc / blend_acc.clamp(min=1.0)
@@ -281,14 +284,32 @@ class Predictor:
         return self.predict_trial(*_load_trial_arrays(trial_data), mouse_index)
 
 
-def _window_forward(model: torch.nn.Module, trial_inputs: torch.Tensor, windows: torch.Tensor,
-                    mouse_index: int) -> torch.Tensor:
+def _window_forward(model, trial_inputs: torch.Tensor, windows: torch.Tensor, mouse_index: int) -> torch.Tensor:
     """The single-mouse forward of the (C, S) windows of a (5, T, H, W)
     trial stack -> (C, N, S) fp32."""
     count, size = windows.shape
     batch = trial_inputs.index_select(1, windows.reshape(-1))  # (5, C*S, H, W)
     batch = batch.view(batch.shape[0], count, size, *batch.shape[2:]).transpose(0, 1)
     return model(batch, mouse_index=mouse_index).float()
+
+
+def replica_forwards(models: list, replica_inputs: list[torch.Tensor], windows: torch.Tensor,
+                     mouse_index: int) -> torch.Tensor:
+    """The (C, S) windows split in order over the replicas (``models``,
+    each with the trial stack on its first card in ``replica_inputs``), each
+    part's forward queued, then the (C, N, S) predictions gathered onto the
+    windows' device. One replica is one forward.
+
+    Every part is copied to its card before any forward is queued: a copy
+    between cards runs on the source card's stream, so a copy queued after
+    the first replica's forward would hold the next replica's card until
+    that forward ends."""
+    parts = [part.to(inputs.device) for part, inputs in zip(windows.tensor_split(len(models)), replica_inputs)]
+    preds = [_window_forward(model, inputs, part, mouse_index)
+             for model, inputs, part in zip(models, replica_inputs, parts) if len(part)]
+    if len(preds) == 1:
+        return preds[0]
+    return torch.cat([pred.to(windows.device) for pred in preds])
 
 
 def blend_updates(pred: torch.Tensor, windows: torch.Tensor, blend_weights: torch.Tensor,
@@ -305,15 +326,16 @@ def blend_updates(pred: torch.Tensor, windows: torch.Tensor, blend_weights: torc
     return windows.reshape(-1), pred.transpose(0, 1).reshape(pred.shape[1], -1), blend
 
 
-def chunk_updates(model: torch.nn.Module, trial_inputs: torch.Tensor, windows: torch.Tensor,
+def chunk_updates(models: list, replica_inputs: list[torch.Tensor], windows: torch.Tensor,
                   blend_weights: torch.Tensor, mouse_index: int,
                   valid: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One chunk of window forwards over a (5, T, H, W) trial stack, as
-    ``blend_updates`` of their predictions: a pure function of the stack,
-    the (C, S) windows and their (C,) ``valid`` rows, which the live
-    ``Predictor`` and the exported trial program (``infer/export.py``) both
-    run."""
-    return blend_updates(_window_forward(model, trial_inputs, windows, mouse_index), windows, blend_weights, valid)
+    """One chunk of window forwards over a (5, T, H, W) trial stack (on each
+    replica's first card, ``replica_forwards``), as ``blend_updates`` of
+    their predictions: a pure function of the stack, the (C, S) windows and
+    their (C,) ``valid`` rows, which the live ``Predictor`` and the exported
+    trial program (``infer/export.py``) both run."""
+    pred = replica_forwards(models, replica_inputs, windows, mouse_index)
+    return blend_updates(pred, windows, blend_weights, valid)
 
 
 def _load_trial_arrays(trial_data: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

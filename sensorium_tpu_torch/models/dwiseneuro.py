@@ -39,7 +39,13 @@ Cout/G) layout that BN and the channel shuffle read; the readout multiplies
 the replicated cortex output by its (…, P / model) slice, adds the bias
 slice, applies softplus and gathers the rows. The core, every BN, the
 learnable softplus betas (whose gradient is summed over the model group)
-and the masks are replicated. Without it the forward is the single-device one.
+and the masks are replicated. Over a model group of one process's cards
+(a mesh without a process group, for serving) the sharded weights are
+``LocalSlices`` and each sharded product runs slice by slice on the
+slices' cards through ``local_product``, which gathers on the group's first
+card; the core, every BN and the softplus (after the gather: it is
+elementwise) run there once. Without it the forward is the single-device
+one.
 """
 
 from __future__ import annotations
@@ -65,7 +71,7 @@ from sensorium_tpu_torch.ops.norm import BatchNorm
 from sensorium_tpu_torch.ops.pe import position_encoding_3d
 from sensorium_tpu_torch.ops.shuffle import channel_shuffle
 from sensorium_tpu_torch.ops.stochastic import channel_dropout, drop_path, drop_path_mask
-from sensorium_tpu_torch.parallel.tensor import copy_to_model, gather_from_model
+from sensorium_tpu_torch.parallel.tensor import copy_to_model, gather_from_model, local_product
 
 
 def kaiming_normal_out(shape: Sequence[int], fan_out: int, generator: torch.Generator) -> nn.Parameter:
@@ -243,12 +249,19 @@ class ShuffleLayer(nn.Module):
         self.model_mesh = None  # set by parallel.tensor.shard_module
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        if self.model_mesh is None:
+        mesh = self.model_mesh
+        if mesh is None:
             y = grouped_pointwise(x, self.kernel.to(self.dtype))
-        else:
+        elif mesh.distributed:
             # (..., G * Cout/G/model) -> gather each group's columns -> (..., G * Cout/G).
-            y = grouped_pointwise(copy_to_model(x, self.model_mesh), self.kernel.to(self.dtype))
-            y = gather_from_model(y.reshape(*y.shape[:-1], self.groups, -1), -1, self.model_mesh).flatten(-2)
+            y = grouped_pointwise(copy_to_model(x, mesh), self.kernel.to(self.dtype))
+            y = gather_from_model(y.reshape(*y.shape[:-1], self.groups, -1), -1, mesh).flatten(-2)
+        else:
+            def product(x, kernel):
+                y = grouped_pointwise(x, kernel.to(self.dtype))
+                return y.reshape(*y.shape[:-1], self.groups, -1)
+
+            y = local_product(product, x, self.kernel).flatten(-2)
         y = self.bn(y)
         y = channel_shuffle(y, self.groups)
         if self.training:
@@ -423,21 +436,40 @@ class DwiseNeuro(nn.Module):
             return softplus_learnable(logits, beta)
         return softplus_beta(logits, self.softplus_beta)
 
+    def _process_group(self) -> bool:
+        """Whether the readout is sharded over a process group's model axis."""
+        return self.model_mesh is not None and self.model_mesh.distributed
+
     def _betas(self) -> torch.Tensor | None:
-        """The learnable (M,) softplus betas, or None. Under a model axis each
-        process applies them to its row slice only, so their gradient is
-        summed over the model group (``copy_to_model``)."""
+        """The learnable (M,) softplus betas, or None. Under a process
+        group's model axis each process applies them to its row slice only,
+        so their gradient is summed over the model group (``copy_to_model``)."""
         if not self.learnable_softplus:
             return None
-        if self.model_mesh is None:
+        if not self._process_group():
             return self.readout_softplus_beta
         return copy_to_model(self.readout_softplus_beta, self.model_mesh)
 
     def _gather_rows(self, grouped: torch.Tensor) -> torch.Tensor:
-        """(..., G, P / model) readout slices -> (..., G, P) under a model axis."""
-        if self.model_mesh is None:
+        """(..., G, P / model) readout slices -> (..., G, P) under a process group's model axis."""
+        if not self._process_group():
             return grouped
         return gather_from_model(grouped, -1, self.model_mesh)
+
+    def _logits(self, equation: str, x: torch.Tensor, mouse_index: int | None) -> torch.Tensor:
+        """The readout's fp32 logits ``einsum(equation, x, kernel) + bias`` of
+        one mouse's head, or of every mouse's (``mouse_index`` None): slice by
+        slice over a model group of this process's cards (gathered on ``x``'s
+        card), else of this process's weights."""
+
+        def product(x, kernel, bias):
+            if mouse_index is None:
+                return einsum_f32(equation, x, kernel.to(self.dtype)) + bias[:, None, None]
+            return einsum_f32(equation, x, kernel[mouse_index].to(self.dtype)) + bias[mouse_index]
+
+        if self.model_mesh is not None and not self.model_mesh.distributed:
+            return local_product(product, x, self.readout_kernel, self.readout_bias)
+        return product(x, self.readout_kernel, self.readout_bias)
 
     def _assemble_flat(self, grouped: torch.Tensor, mouse: int) -> torch.Tensor:
         """(B, T, G, P) group-layout activations -> (B, N_mouse, T) flat order."""
@@ -454,31 +486,28 @@ class DwiseNeuro(nn.Module):
         x = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype)  # (B, T, C)
         x = self.cortex(x, generator)
         dropout = self.training and self.drop_rate > 0.0
-        if self.model_mesh is not None:
+        if self._process_group():
             x = copy_to_model(x, self.model_mesh)
 
         if mouse_index is not None:
             if dropout:
                 x = channel_dropout(x, self.drop_rate, generator)
             xg = x.reshape(*x.shape[:-1], self.groups, x.shape[-1] // self.groups)  # (B, T, G, C/G)
-            kernel = self.readout_kernel[mouse_index].to(self.dtype)
-            logits = einsum_f32("btgc,gcp->btgp", xg, kernel) + self.readout_bias[mouse_index]
+            logits = self._logits("btgc,gcp->btgp", xg, mouse_index)
             betas = self._betas()
             beta = None if betas is None else betas[mouse_index]
             return self._assemble_flat(self._gather_rows(self._softplus(logits, beta)), mouse_index)
 
-        kernel = self.readout_kernel.to(self.dtype)
         if dropout:
             # Each readout draws its own mask on the shared cortex output
             # (every reference Readout holds its own Dropout1d).
             m = self.num_mice
             xm = channel_dropout(x.expand(m, *x.shape), self.drop_rate, generator, sample_dims=2)
             xm = xm.reshape(m, *x.shape[:-1], self.groups, x.shape[-1] // self.groups)
-            logits = einsum_f32("mbtgc,mgcp->mbtgp", xm, kernel)
+            logits = self._logits("mbtgc,mgcp->mbtgp", xm, None)
         else:
             xg = x.reshape(*x.shape[:-1], self.groups, x.shape[-1] // self.groups)
-            logits = einsum_f32("btgc,mgcp->mbtgp", xg, kernel)
-        logits = logits + self.readout_bias[:, None, None]
+            logits = self._logits("btgc,mgcp->mbtgp", xg, None)
         betas = self._betas()
         beta = None if betas is None else betas[:, None, None, None, None]
         pred = self._gather_rows(self._softplus(logits, beta))

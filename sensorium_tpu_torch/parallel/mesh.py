@@ -35,9 +35,12 @@ batch a process holds and how its sums meet the others':
 
 A mesh over one process's own devices (``create_mesh(devices=[...])``, or
 ``create_mesh()`` with no process group: every visible card) has no process
-group and runs no collective; ``Predictor`` spreads its chunks over it. It
-takes no ``model`` axis: ``Predictor`` over a model axis is not ported
-(ROADMAP.md §A.4b).
+group and runs no collective; ``Predictor`` serves over it. Its devices
+follow the same order: device d has model index ``d % model`` and data
+index ``d // model``, and ``model_groups`` cuts it into one ``{"model":
+m}`` mesh a data index (replica x data), the cards over which one eval
+replica's weight slices lie (``parallel/tensor.py``). Training takes one
+card a process: ``MouseModel`` refuses a mesh of several devices.
 """
 
 from __future__ import annotations
@@ -51,9 +54,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-PROCESS_LOCAL_MODEL_AXIS = ("a 'model' axis needs a process group, one card a process: a mesh over one process's "
-                            "devices serves Predictor, and Predictor over a model axis is not ported yet "
-                            "(ROADMAP.md §A.4b)")
 BUCKET_BYTES = 64 * 2**20  # gradients summed per all_reduce
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
@@ -120,9 +120,18 @@ def _process_devices(devices) -> tuple:
     return devices
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with the card's index ("cuda" is the current card): the
+    name a tensor on it reports, which export's device mapping keys on."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _local_devices(devices) -> tuple:
     if devices is not None:
-        return tuple(torch.device(d) for d in devices)
+        return tuple(_indexed(d) for d in devices)
     count = torch.cuda.device_count()
     if count == 0:
         raise RuntimeError("no CUDA card is visible; pass devices=[...] for a mesh of CPU devices")
@@ -156,8 +165,6 @@ def _model_groups(num_model: int) -> tuple:
 def _build(shape: dict, count: int, devices: tuple) -> Mesh:
     extent = math.prod(shape.values())
     if not dist.is_initialized():
-        if shape["model"] != 1:
-            raise NotImplementedError(PROCESS_LOCAL_MODEL_AXIS)
         return Mesh(dict(shape), devices[:extent], 0, 1)
     if extent != count:
         raise ValueError(f"a mesh over a process group spans all its {count} processes, not {extent}")
@@ -173,8 +180,8 @@ def create_mesh(num_data: int | None = None, num_model: int = 1, devices=None) -
     one device each (``devices``: this process's); ``num_model`` above 1
     shards the cortex and readout weights over adjacent ranks
     (``parallel/tensor.py``). Otherwise it spans ``devices`` of this process
-    (by default every visible card), and ``num_model`` above 1 raises
-    ``NotImplementedError``.
+    (by default every visible card; a device may repeat), in JAX's device
+    order (``model_groups``).
 
     As in JAX, an auto ``num_data`` that leaves devices out, or a mesh larger
     than the devices, raises ``ValueError``; an explicit smaller
@@ -216,6 +223,17 @@ def create_hybrid_mesh(num_slices: int | None = None, num_data: int | None = Non
     if covered != count:
         raise ValueError(f"mesh {(num_slices, num_data, num_model)} covers {covered} devices but {count} are present")
     return _build({"replica": num_slices, "data": num_data, "model": num_model}, count, devices)
+
+
+def model_groups(mesh: Mesh) -> list[Mesh]:
+    """The model groups of a mesh over one process's devices, in data order
+    (replica x data): group i a ``{"model": m}`` mesh of devices ``i * m``
+    to ``i * m + m - 1``, the cards of data index i's weight slices."""
+    if mesh.distributed:
+        raise ValueError("model_groups cuts a mesh over one process's devices; a process group's mesh holds one "
+                         "device a process")
+    m = mesh.num_model
+    return [Mesh({"model": m}, mesh.devices[i * m:(i + 1) * m], 0, 1) for i in range(data_extent(mesh))]
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:

@@ -977,3 +977,76 @@ def test_card_traced_artifacts_run_on_the_cpu(card_model, tmp_path):
         card = load_exported(trial, device="cuda")(*(a.cuda() for a in args)).cpu()
         cpu = load_exported(trial, device="cpu")(*args)
     torch.testing.assert_close(cpu, card, rtol=1e-4, atol=1e-4)
+
+
+def card_trial(seed: int, length: int = 40) -> tuple:
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 255, (12, 14, length)).astype(np.float32),
+            rng.uniform(0, 5, (2, length)).astype(np.float32), rng.uniform(0, 50, (2, length)).astype(np.float32))
+
+
+def card_devices(count: int) -> list[str]:
+    """``count`` devices of a mesh on this host: cards 0, 1, ... where there
+    are enough, else card 0 repeated."""
+    cards = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(count)] if cards >= count else ["cuda:0"] * count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_predictor_over_a_model_axis_on_the_card_matches_one_card(card_model, shape):
+    """``Predictor`` over a (data, model) mesh of this host's cards (card 0
+    repeated where there are fewer): each replica's cortex and readout sliced
+    over its group's cards, 4 + 4 kernel launches a replica's chunk forward,
+    the one-card trial within fp32 rounding."""
+    from sensorium_tpu_torch.parallel import mesh as mesh_lib
+
+    _, path = card_model
+    num_data, num_model = shape
+    mesh = mesh_lib.create_mesh(num_data, num_model, devices=card_devices(num_data * num_model))
+    trial = card_trial(22)
+    one = Predictor(path, chunk_size=8, device="cuda")
+    sharded = Predictor(path, chunk_size=8, mesh=mesh)
+    before = dict(dw_kernels.LAUNCHES)
+    got = sharded.predict_trial(*trial, 1)
+    windows = 40 - (ARGUS["frame_stack"]["size"] - 1) * ARGUS["frame_stack"]["step"]
+    forwards = sum(min(num_data, windows - start, 8) for start in range(0, windows, 8))
+    assert dw_kernels.LAUNCHES["dw_spatial_fwd"] - before["dw_spatial_fwd"] == 2 * forwards
+    np.testing.assert_allclose(got, one.predict_trial(*trial, 1), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_a_multi_device_artifact_names_each_card_it_uses(card_model, tmp_path):
+    """The trial program of a (data 2, model 2) ``Predictor`` traced on the
+    card(s): every device its graph names is one of its mesh's cards and each
+    of them is named; loaded back onto the host's cards it gives the live
+    sharded Predictor's trial."""
+    from sensorium_tpu_torch.infer.export import export_trial, load_exported, save_exported
+    from sensorium_tpu_torch.parallel import mesh as mesh_lib
+
+    _, path = card_model
+    mesh = mesh_lib.create_mesh(2, 2, devices=card_devices(4))
+    sharded = Predictor(path, chunk_size=8, length_bucket=16, mesh=mesh)
+    exported = export_trial(sharded, mouse_index=1, src_hw=(12, 14))
+    named = set()
+    for module in exported.program.graph_module.modules():
+        if isinstance(module, torch.fx.GraphModule):
+            for node in module.graph.nodes:
+                named.update(str(v) for v in [*node.args, *node.kwargs.values()] if isinstance(v, torch.device))
+    assert named == {str(d) for d in mesh.devices}
+    artifact = load_exported(save_exported(tmp_path / "mesh.pt2", exported), device="cuda")
+    assert artifact.nr_devices == 4
+    video, behavior, pupil = card_trial(23, 32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (video.transpose(2, 0, 1), behavior, pupil)]
+    with torch.inference_mode():
+        got = artifact(*args, torch.tensor(32, dtype=torch.int32, device="cuda")).cpu().numpy()
+    np.testing.assert_allclose(got, sharded.predict_trial(video, behavior, pupil, 1), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_dryrun_refuses_fewer_cards_than_ranks(cuda):
+    from sensorium_tpu_torch.tools.dryrun import dryrun_multichip
+
+    count = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match=f"needs {count + 1} cards, one a rank; {count} visible"):
+        dryrun_multichip(count + 1, flagship=False)

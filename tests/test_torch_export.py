@@ -10,10 +10,13 @@ program at rtol 3e-5 / atol 1e-4: its chunks hold other windows, so the
 forwards run at other batch compositions) and to the JAX package's live
 model and ``.stablehlo`` artifacts on the same weights (rtol 1e-4 / atol
 1e-5 for the forward, as ``tests/test_torch_model.py``; 1e-4 / 1e-4 for the
-trial, as ``tests/test_torch_predictor.py``). Also: the ``sensorium::``
-custom ops' CPU and fake implementations, the multi-device refusals
-(ROADMAP.md §A.4b), and a process that loads and runs an artifact without
-the port's model, engine or configs.
+trial, as ``tests/test_torch_predictor.py``). The multi-device trial
+artifacts of a data mesh (4 replicas) and a hybrid mesh (4 replicas of 2
+devices) are held to the unsharded port ``Predictor`` and the JAX
+package's mesh artifacts at the trial's rtol 3e-5 / atol 1e-4. Also: the
+``sensorium::`` custom ops' CPU and fake implementations, the
+``mesh_data`` refusals, and processes that load and run an artifact
+without the port's model, engine or configs.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from sensorium_tpu.engine.model import MouseModel as JaxMouseModel
 from sensorium_tpu.infer import export as jexport
 from sensorium_tpu.infer.predictor import Predictor as JaxPredictor
+from sensorium_tpu.parallel import mesh as jax_mesh
 from sensorium_tpu_torch.cli import export as export_cli
 from sensorium_tpu_torch.engine.model import load_model
 from sensorium_tpu_torch.infer.export import (
@@ -44,6 +48,7 @@ from sensorium_tpu_torch.infer.export import (
 )
 from sensorium_tpu_torch.infer.predictor import Predictor
 from sensorium_tpu_torch.ops import dw_kernels
+from sensorium_tpu_torch.parallel import mesh as mesh_lib
 from tests.test_engine import tiny_params
 
 REPO = Path(__file__).resolve().parents[1]
@@ -342,11 +347,6 @@ class TestExportTrial:
         with pytest.raises(SystemExit, match=match):
             export_cli.main(["-m", str(ckpt_path), "--trial", "--mouse", "0", *flags])
 
-    def test_cli_mesh_data_is_not_ported(self, ckpt_path, tmp_path):
-        with pytest.raises(NotImplementedError, match="§A.4b"):
-            export_cli.main(["-m", str(ckpt_path), "-o", str(tmp_path / "mesh.pt2"), "--mouse", "1", "--trial",
-                             "--chunk", str(CHUNK), "--bucket", str(BUCKET), "--mesh-data", "2", "--device", "cpu"])
-
     def test_mesh_data_sign_and_kind_validated(self, ckpt_path, tmp_path):
         kwargs = dict(out_path=tmp_path / "x.pt2", mouse_index=0, src_hw=SRC_HW, chunk_size=CHUNK,
                       length_bucket=BUCKET, platforms=("cpu",), device="cpu")
@@ -355,17 +355,10 @@ class TestExportTrial:
                 export_model_file(ckpt_path, trial=True, mesh_data=mesh_data, **kwargs)
         with pytest.raises(ValueError, match="trial exports only"):
             export_model_file(ckpt_path, mesh_data=4, **kwargs)
-        with pytest.raises(NotImplementedError, match="§A.4b"):
-            export_model_file(ckpt_path, trial=True, mesh_data=2, **kwargs)
+        # Cards are counted before anything is loaded (none here; JAX's error).
+        with pytest.raises(ValueError, match="needs 1024 local devices"):
+            export_model_file(ckpt_path, trial=True, mesh_data=1024, **{**kwargs, "device": "cuda"})
         assert not (tmp_path / "x.pt2").exists()
-
-    def test_predictor_over_a_mesh_is_not_ported(self, ckpt_path):
-        from sensorium_tpu_torch.parallel import mesh as mesh_lib
-
-        sharded = Predictor(ckpt_path, chunk_size=CHUNK, length_bucket=BUCKET,
-                            mesh=mesh_lib.create_mesh(devices=["cpu", "cpu"]))
-        with pytest.raises(NotImplementedError, match="§A.4b"):
-            export_trial(sharded, mouse_index=1, src_hw=SRC_HW, platforms=("cpu",))
 
     def test_bucket_chunk_divisibility_and_frame_size_enforced(self, ckpt_path):
         with pytest.raises(ValueError, match="multiple of chunk_size"):
@@ -378,6 +371,105 @@ class TestExportTrial:
     def test_predictor_validates_length_bucket(self, ckpt_path):
         with pytest.raises(ValueError, match="length_bucket"):
             Predictor(ckpt_path, chunk_size=8, length_bucket=0, device="cpu")
+
+
+MESHES = {
+    "data4": (lambda: mesh_lib.create_mesh(num_data=4, devices=["cpu"] * 4),
+              lambda: jax_mesh.create_mesh(num_data=4), 4, 7),
+    "hybrid2x2x2": (lambda: mesh_lib.create_hybrid_mesh(num_slices=2, num_data=2, num_model=2, devices=["cpu"] * 8),
+                    lambda: jax_mesh.create_hybrid_mesh(num_slices=2, num_data=2, num_model=2), 8, 11),
+}
+
+
+class TestMeshArtifact:
+    """``tests/test_export.py``'s mesh and hybrid trial artifacts: the
+    program of a ``Predictor(mesh=)``, each chunk's windows split over the
+    replicas (4 over a data mesh; 4 of 2 cards each over the hybrid mesh),
+    against the unsharded port ``Predictor`` and the JAX package's artifact
+    of the same mesh at rtol 3e-5 / atol 1e-4; ``nr_devices`` and the mesh
+    in the artifact; the weights stored once."""
+
+    @pytest.fixture(scope="class")
+    def predictor(self, ckpt_path):
+        return Predictor(ckpt_path, chunk_size=CHUNK, length_bucket=BUCKET, device="cpu")
+
+    @pytest.fixture(scope="class")
+    def single(self, predictor, tmp_path_factory):
+        path = tmp_path_factory.mktemp("single") / "m1.trial.pt2"
+        return save_exported(path, export_trial(predictor, mouse_index=1, src_hw=SRC_HW, platforms=("cpu",)))
+
+    @pytest.fixture(scope="class", params=sorted(MESHES))
+    def artifacts(self, request, ckpt_path, tmp_path_factory):
+        port_mesh, jax_mesh_fn, devices, seed = MESHES[request.param]
+        work = tmp_path_factory.mktemp(request.param)
+        sharded = Predictor(ckpt_path, chunk_size=CHUNK, length_bucket=BUCKET, mesh=port_mesh())
+        path = save_exported(work / "mesh.trial.pt2",
+                             export_trial(sharded, mouse_index=1, src_hw=SRC_HW, platforms=("cpu",)))
+        jax_predictor = JaxPredictor(ckpt_path, chunk_size=CHUNK, length_bucket=BUCKET, mesh=jax_mesh_fn())
+        jax_artifact = jexport.load_exported(jexport.save_exported(
+            work / "mesh.trial.stablehlo",
+            jexport.export_trial(jax_predictor, mouse_index=1, src_hw=SRC_HW, platforms=("cpu",))))
+        return path, jax_artifact, devices, seed, sharded
+
+    def test_matches_the_unsharded_predictor_and_the_jax_artifact(self, predictor, artifacts):
+        from jax.sharding import NamedSharding, PartitionSpec
+
+        path, jax_artifact, devices, seed, sharded = artifacts
+        artifact = load_exported(path, device="cpu")
+        assert artifact.nr_devices == jax_artifact.nr_devices == devices
+        assert artifact.mesh == sharded.mesh.shape
+        length = 37
+        video, behavior, pupil_center = _trial_arrays(length, seed=seed)
+        want = predictor.predict_trial(video, behavior, pupil_center, 1)
+        args = _padded_args(video, behavior, pupil_center, length)
+        with torch.no_grad():
+            got = artifact(*(torch.from_numpy(np.asarray(a)) for a in args)).numpy()[:, :length]
+        assert got.shape == want.shape == (7, length)
+        np.testing.assert_allclose(got, want, rtol=TRIAL_RTOL, atol=TRIAL_ATOL)
+        np.testing.assert_allclose(got, sharded.predict_trial(video, behavior, pupil_center, 1),
+                                   rtol=TRIAL_RTOL, atol=TRIAL_ATOL)
+        jax_devices = jax.devices()[:devices]
+        rep = NamedSharding(jax.sharding.Mesh(np.asarray(jax_devices), ("d",)), PartitionSpec())
+        jax_got = np.asarray(jax_artifact.call(*(jax.device_put(a, rep) for a in args)))[:, :length]
+        np.testing.assert_allclose(got, jax_got, rtol=TRIAL_RTOL, atol=TRIAL_ATOL)
+
+    def test_weights_are_stored_once(self, single, artifacts):
+        """Every replica runs the first one's stored weights, copied to its
+        cards in the program: the artifact holds the one-device artifact's
+        weight bytes, not one copy a replica."""
+        def weight_bytes(path):
+            program = torch.export.load(path)
+            tensors = [*program.state_dict.values(), *program.constants.values()]
+            return sum(t.numel() * t.element_size() for t in tensors)
+
+        path, _, devices, _, _ = artifacts
+        assert weight_bytes(path) == weight_bytes(single)
+        graph = torch.export.load(path).graph_module
+        targets = [node.target for module in graph.modules() if isinstance(module, torch.fx.GraphModule)
+                   for node in module.graph.nodes]
+        blocks = len(tiny_params()["nn_module"][1]["core_features"])
+        assert targets.count(torch.ops.sensorium.dw_spatial_fwd.default) == blocks * 4  # a forward a replica
+
+    def test_cli_mesh_data_flow(self, ckpt_path, tmp_path, capsys):
+        out = tmp_path / "mesh.pt2"
+        export_cli.main(["-m", str(ckpt_path), "-o", str(out), "--mouse", "1", "--trial", "--src-hw", "12,16",
+                         "--chunk", str(CHUNK), "--bucket", str(BUCKET), "--mesh-data", "4", "--platforms", "cpu",
+                         "--device", "cpu", "--check"])
+        summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert summary["nr_devices"] == 4 and summary["mesh"] == {"data": 4, "model": 1}
+        assert summary["check"]["finite"] and summary["check"]["output_shape"] == [7, BUCKET]
+        assert load_exported(out, device="cpu").nr_devices == 4
+
+    def test_an_artifact_maps_its_devices_onto_the_hosts(self):
+        from sensorium_tpu_torch.infer.export import _placement
+
+        traced = ["cuda:0", "cuda:1"]
+        assert _placement(traced, torch.device("cpu")) == {"cuda:0": "cpu", "cuda:1": "cpu"}
+        # A one-device artifact moves wholesale: traced on "cuda", its graph names "cuda:0".
+        assert _placement(["cuda"], torch.device("cpu")) == "cpu"
+        assert _placement(["cpu"], torch.device("cpu")) == "cpu"
+        with pytest.raises(ValueError, match="pass 'cuda', not cuda:1"):
+            _placement(traced, torch.device("cuda", 1))
 
 
 LOAD_AND_RUN = """
@@ -402,6 +494,37 @@ def test_an_artifact_loads_and_runs_without_the_model_code(model, tmp_path):
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["shape"] == [3, 5, 4]
     assert result["check"]["finite"] and result["check"]["output_shape"] == [2, 5, 4]
+    assert result["loaded"] == []
+
+
+LOAD_AND_CHECK = """
+import json, sys
+from sensorium_tpu_torch.infer.export import check_artifact, load_exported
+path = sys.argv[1]
+module = load_exported(path, device="cpu")
+check = check_artifact(path, batch=2, device="cpu")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sensorium_tpu")
+                or m.startswith(("sensorium_tpu_torch.models", "sensorium_tpu_torch.engine",
+                                 "sensorium_tpu_torch.configs", "sensorium_tpu_torch.infer.predictor",
+                                 "sensorium_tpu_torch.parallel")))
+print(json.dumps({"nr_devices": module.nr_devices, "mesh": module.mesh, "check": check, "loaded": loaded}))
+"""
+
+
+def test_a_mesh_artifact_loads_and_runs_without_the_model_code(ckpt_path, tmp_path):
+    """The hybrid trial artifact (8 devices) in a process that imports torch
+    and the ops module only: no model, engine, predictor or mesh code."""
+    mesh = mesh_lib.create_hybrid_mesh(num_slices=2, num_data=2, num_model=2, devices=["cpu"] * 8)
+    sharded = Predictor(ckpt_path, chunk_size=CHUNK, length_bucket=BUCKET, mesh=mesh)
+    path = save_exported(tmp_path / "hybrid.pt2", export_trial(sharded, mouse_index=0, src_hw=SRC_HW,
+                                                               platforms=("cpu",)))
+    proc = subprocess.run([sys.executable, "-c", LOAD_AND_CHECK, str(path)], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["nr_devices"] == 8 and result["mesh"] == {"replica": 2, "data": 2, "model": 2}
+    assert result["check"]["finite"] and result["check"]["output_shape"] == [5, 2 * BUCKET]
+    assert result["check"]["max"] > 0.0
     assert result["loaded"] == []
 
 

@@ -33,7 +33,7 @@ from sensorium_tpu.parallel import mesh as jax_mesh
 from sensorium_tpu_torch.compat import from_jax_variables
 from sensorium_tpu_torch.data.datasets import MiceBatch
 from sensorium_tpu_torch.data.loader import MiceDataLoader
-from sensorium_tpu_torch.engine.model import MouseModel
+from sensorium_tpu_torch.engine.model import MouseModel, load_model
 from sensorium_tpu_torch.infer.predictor import Predictor
 from sensorium_tpu_torch.parallel import mesh as mesh_lib
 from tests import torch_mesh_worker as worker
@@ -45,6 +45,7 @@ WORKER_TIMEOUT = 300  # seconds; the two ranks take ~7
 LOSS_RTOL = 1e-5
 PARAM_RTOL, PARAM_ATOL, DW_ATOL = 1e-4, 1e-5, 5e-4
 STATS_RTOL, STATS_ATOL = 1e-4, 1e-5
+JAX_PREDICTOR_TOL = 1e-4  # the port's Predictor against the JAX package's (tests/test_torch_predictor.py)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -165,16 +166,23 @@ def test_mesh_factoring_matches_jax(case):
 
 @pytest.mark.parametrize("fn", [mesh_lib.create_mesh, mesh_lib.create_hybrid_mesh])
 def test_a_model_axis_is_refused(fn):
-    """A model axis over one process's devices is refused (``Predictor`` over
-    a model axis is not ported); over a process group of 4 (a fake one: the
-    groups, no collective) it is accepted in JAX's device order, with each
-    rank's data and model groups."""
+    """A model axis over one process's devices is accepted for serving, in
+    JAX's device order (model groups of adjacent devices), and refused for
+    training, which takes one card a process and names the path that does;
+    over a process group of 4 (a fake one: the groups, no collective) it is
+    accepted in JAX's device order, with each rank's data and model groups."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     import torch.distributed as dist
 
-    with pytest.raises(NotImplementedError, match="Predictor over a model axis is not ported yet"):
-        fn(num_model=2, devices=["cpu"] * 8)
     kwargs = {"num_slices": 2} if fn is mesh_lib.create_hybrid_mesh else {}
+    local = fn(num_model=2, devices=[f"cpu:{i}" for i in range(8)], **kwargs)
+    assert local.shape == ({"replica": 2, "data": 2, "model": 2} if kwargs else {"data": 4, "model": 2})
+    assert not local.distributed and mesh_lib.data_extent(local) == 4 and mesh_lib.tensor_parallel(local)
+    groups = mesh_lib.model_groups(local)
+    assert [[d.index for d in group.devices] for group in groups] == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    assert all(group.shape == {"model": 2} and mesh_lib.data_extent(group) == 1 for group in groups)
+    with pytest.raises(ValueError, match="cli.train --mesh data or --mesh data,model"):
+        MouseModel(worker.tiny_params(), mesh=local)
     expected = {"replica": 2, "data": 1, "model": 2} if kwargs else {"data": 2, "model": 2}
     for rank in range(4):
         dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=4)
@@ -184,6 +192,8 @@ def test_a_model_axis_is_refused(fn):
             assert (mesh.index, mesh.data_index, mesh.model_index) == (rank, rank // 2, rank % 2)
             assert dist.get_process_group_ranks(mesh.data_group) == [rank % 2, rank % 2 + 2]
             assert dist.get_process_group_ranks(mesh.model_group) == [rank // 2 * 2, rank // 2 * 2 + 1]
+            with pytest.raises(ValueError, match="one process's devices"):
+                mesh_lib.model_groups(mesh)
         finally:
             dist.destroy_process_group()
 
@@ -363,6 +373,93 @@ def test_predictor_mesh_refusals(checkpoint):
     across = mesh_lib.Mesh({"data": 2}, (torch.device("cpu"),), 0, 2, group=object())
     with pytest.raises(ValueError, match="single process"):
         Predictor(checkpoint, chunk_size=4, mesh=across)
+
+
+@pytest.fixture(scope="module")
+def jax_checkpoint(tmp_path_factory):
+    """The JAX tests' tiny model from seed 0 (``tests/test_parallel.py``
+    TestShardedPredictor), saved by the JAX engine."""
+    model = JaxMouseModel(jax_tiny_params())
+    model.build_state(seed=0, learning_rate=1e-3)
+    path = tmp_path_factory.mktemp("jax_predictor") / "model-001-0.100000.ckpt"
+    model.save(path)
+    return path
+
+
+def jax_test_trial(seed: int) -> tuple:
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 255, (12, 16, 24)).astype(np.float32), rng.uniform(0, 5, (2, 24)).astype(np.float32),
+            rng.uniform(50, 200, (2, 24)).astype(np.float32))
+
+
+MODEL_MESHES = {
+    "data4_model2": (lambda devices: mesh_lib.create_mesh(num_model=2, devices=devices),
+                     lambda: jax_mesh.create_mesh(num_data=4, num_model=2), 4),
+    "hybrid2x2x2": (lambda devices: mesh_lib.create_hybrid_mesh(num_slices=2, num_data=2, num_model=2,
+                                                                devices=devices),
+                    lambda: jax_mesh.create_hybrid_mesh(num_slices=2, num_data=2, num_model=2), 41),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(MODEL_MESHES))
+def test_predictor_over_a_model_axis_matches_jax_and_one_device(jax_checkpoint, layout):
+    """``tests/test_parallel.py`` TestShardedPredictor (a (data 4, model 2)
+    mesh) and test_hybrid_predictor_shards_chunks_across_replica (a (2, 2, 2)
+    mesh) on 8 CPU devices: one replica a data index, its cortex and readout
+    sliced over its model group; the trial within JAX's rtol 1e-5 / atol 1e-6
+    of the one-device port Predictor, and of JAX's Predictor on the same
+    mesh at the port's tolerance against the JAX package (rtol 1e-4 / atol
+    1e-4, ``tests/test_torch_predictor.py``: the two fp32 forwards sum in
+    other orders, sharded or not). A chunk that does not divide over
+    replica x data raises."""
+    from sensorium_tpu.infer.predictor import Predictor as JaxPredictor
+
+    port_mesh, jax_mesh_fn, seed = MODEL_MESHES[layout]
+    mesh = port_mesh(["cpu"] * 8)
+    trial = jax_test_trial(seed)
+    one = Predictor(jax_checkpoint, chunk_size=8, device="cpu").predict_trial(*trial, mouse_index=1)
+    sharded = Predictor(jax_checkpoint, chunk_size=8, mesh=mesh)
+    assert len(sharded.replicas) == mesh_lib.data_extent(mesh) == 4
+    got = sharded.predict_trial(*trial, mouse_index=1)
+    want = JaxPredictor(jax_checkpoint, chunk_size=8, mesh=jax_mesh_fn()).predict_trial(*trial, mouse_index=1)
+    np.testing.assert_allclose(got, one, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=JAX_PREDICTOR_TOL, atol=JAX_PREDICTOR_TOL)
+    with pytest.raises(ValueError, match="batch-sharding ways"):
+        Predictor(jax_checkpoint, chunk_size=6, mesh=mesh)
+
+
+def test_each_replica_holds_one_slice_of_each_sharded_weight_a_card(jax_checkpoint):
+    """Over (data 2, model 2): each replica's readout and cortex kernels are
+    ``LocalSlices`` of two slices, each 1/2 of the whole weight's bytes on its
+    group's card k, gathered back to the checkpoint's tensors under the JAX
+    tree's names; the replicated weights stay whole on the group's first card."""
+    from sensorium_tpu_torch.parallel import tensor as tensor_lib
+
+    whole = load_model(jax_checkpoint, device="cpu").state.eval_model.state_dict()
+    mesh = mesh_lib.create_mesh(num_model=2, devices=["cpu"] * 4)
+    sharded = Predictor(jax_checkpoint, chunk_size=4, mesh=mesh)
+    sliced = {"readout_kernel": 3, "readout_bias": 2, "cortex_0.kernel": 2, "cortex_1.kernel": 2}
+    for (module, device), group in zip(sharded.replicas, mesh_lib.model_groups(mesh)):
+        assert device == group.device
+        for name, axis in sliced.items():
+            slices = module.get_submodule(name)
+            assert isinstance(slices, tensor_lib.LocalSlices) and slices.axis == axis
+            assert [piece.device for piece in slices] == list(group.devices)
+            for k, piece in enumerate(slices):
+                assert piece.numel() * piece.element_size() * 2 == whole[name].numel() * whole[name].element_size()
+                torch.testing.assert_close(piece, whole[name].chunk(2, axis)[k], rtol=0, atol=0)
+        gathered = tensor_lib.gather_state_dict(module, None)
+        assert set(gathered) == set(whole)
+        for name, value in whole.items():
+            assert torch.equal(gathered[name], value), name
+
+
+def test_load_model_over_one_process_cards_refuses(jax_checkpoint):
+    """``load_model(mesh=)`` takes a process group's mesh (one device a
+    process); a mesh of several of this process's devices serves through
+    ``Predictor(mesh=)``, which the refusal names."""
+    with pytest.raises(ValueError, match=r"serves through Predictor\(mesh=\)"):
+        load_model(jax_checkpoint, mesh=mesh_lib.create_mesh(num_model=2, devices=["cpu"] * 4))
 
 
 def test_a_training_mesh_holds_one_device_a_process():
