@@ -15,7 +15,7 @@ Phases, each of which passes or makes the script exit non-zero:
    from the same bf16 inputs within one bf16 rounding (rtol 2**-8, atol
    1e-5). Times are CUDA-event medians (a call under 2 ms is timed over
    back-to-back calls): the kernel, the plain version, and as a yardstick
-   two cuDNN lowerings of the same conv, which the port never calls: ``F.conv3d(groups=C)`` and ``F.conv2d(groups=C)`` on the
+   two cuDNN lowerings of the same conv, off the port's default route: ``F.conv3d(groups=C)`` and ``F.conv2d(groups=C)`` on the
    channels-last (B*T, C, H, W) view (temporal: kernel (k, 1) on the
    (B, C, T, H*W) view); ``library_ms`` is the faster of the two per shape,
    and both are recorded. Beside them, the least time the card needs to
@@ -225,7 +225,15 @@ Phases, each of which passes or makes the script exit non-zero:
    export and load seconds, ``.pt2`` bytes and the archive's bytes by part
    beside phase 17's artifact, windows/s. 19c: ``tools/dryrun.py``
    ``dryrun_multichip(2)``, two gloo ranks sharing this card, one sharded
-   flagship step within 1e-4 of rank 0's unsharded step.
+   flagship step within 1e-4 of rank 0's unsharded step;
+20. the benchmark program: ``python -m sensorium_tpu_torch.tools.bench``
+   (the training headline) and then ``... --infer`` as children, each
+   within ``BENCH_TIMEOUT`` seconds. Each must exit 0 and end in its
+   contract line (the JAX bench's metric name, finite numbers, the card's
+   name, a peak memory, ``dw_impl`` ``cuda``) with the kernel launches of
+   phases 7 and 4 (per step, per chunk forward); its clips/s at least half
+   of phase 7's and its windows/s at least half of phase 4's, or it
+   measures some other program. Both lines and the two ratios are printed.
 
 ``--cards`` runs only the parts that need two cards or more, and fails with
 fewer: 18c on phase 11's dataset, then phase 19 over 2-4 cards (devices
@@ -404,6 +412,9 @@ TP_WORLD = 2
 TP_BATCH = 16
 TP_CONTINUED_STEPS = 2
 TP_PREDICT_ROWS = 4
+# Phase 20: the benchmark program's children, and how far below phases 7 and 4 they may fall.
+BENCH_TIMEOUT = 300  # seconds a child
+BENCH_MIN_RATIO = 0.5
 # Runs ``python -m MODULE ARGS`` and writes the kernel launches to PATH when the process exits.
 COUNTED_MODULE = (
     "import atexit, json, runpy, sys\n"
@@ -3168,6 +3179,53 @@ def serving_mesh(record: dict, checkpoint: Path, work: Path, cards: int = 1) -> 
     return launches
 
 
+def bench_on_card(record: dict) -> None:
+    """Phase 20 (the module docstring): ``tools/bench.py``'s headline and
+    ``--infer`` as children, held to phases 7 and 4."""
+    import torch
+
+    torch.cuda.empty_cache()  # the children need the card's memory
+    per_chunk = {"dw_spatial_fwd": len(FLAGSHIP_NN_MODULE[1]["core_features"]),
+                 "dw_temporal_fwd": len(FLAGSHIP_NN_MODULE[1]["core_features"])}
+    result = {}
+    for label, flags, metric, launch_key, launches, reference, phase in (
+        ("train", [], "train_clips_per_sec_per_chip_b32_fwd_bwd", "kernel_launches_per_step",
+         expected_train_launches(), record["train"]["clips_per_second"], "phase 7"),
+        ("infer", ["--infer"], "infer_window_forwards_per_sec", "kernel_launches_per_chunk_forward",
+         per_chunk, record["serve"]["windows_per_second"], "phase 4"),
+    ):
+        command = [sys.executable, "-m", "sensorium_tpu_torch.tools.bench", *flags]
+        start = time.perf_counter()
+        try:
+            proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            fail(f"bench {label}: no result within {BENCH_TIMEOUT} s")
+        seconds = time.perf_counter() - start
+        if proc.returncode != 0:
+            fail(f"bench {label}: exit {proc.returncode}:\n{proc.stdout[-1500:]}\n{proc.stderr[-3000:]}")
+        try:
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (json.JSONDecodeError, IndexError):
+            fail(f"bench {label}: the last line is not the contract's JSON:\n{proc.stdout[-1500:]}")
+        detail = line.get("detail", {})
+        print(f"bench: {label} in {seconds:.1f} s: {json.dumps(line)}", flush=True)
+        numbers = [line.get("value"), line.get("vs_baseline"), detail.get("peak_memory_gb")]
+        if line.get("metric") != metric or not all(isinstance(v, (int, float)) and math.isfinite(v) for v in numbers):
+            fail(f"bench {label}: metric {line.get('metric')!r} (expected {metric!r}), value, vs_baseline and "
+                 f"peak_memory_gb {numbers} must be finite numbers")
+        if detail.get("dw_impl") != "cuda" or detail.get("card") != record["device"]["nvidia_smi"]:
+            fail(f"bench {label}: dw_impl {detail.get('dw_impl')!r} (expected 'cuda'), card {detail.get('card')!r}")
+        if detail.get(launch_key) != launches:
+            fail(f"bench {label}: {launch_key} {detail.get(launch_key)}, expected {launches}")
+        ratio = line["value"] / reference
+        print(f"bench: {label}: {line['value']} {line['unit']} against {reference:.3f} in {phase}: ratio "
+              f"{ratio:.3f}", flush=True)
+        if ratio < BENCH_MIN_RATIO:
+            fail(f"bench {label}: {ratio:.3f} of {phase}'s rate, below {BENCH_MIN_RATIO}: it measures another program")
+        result[label] = {"line": line, "seconds": seconds, "ratio": ratio}
+    record["bench"] = result
+
+
 def cards_only(record: dict, out_dir: Path) -> None:
     """``--cards``: the parts that need two cards or more, alone: 18c on
     phase 11's dataset and phase 15's configs, then phase 19 over 2-4 cards
@@ -3381,6 +3439,10 @@ def main() -> int:
         record["serving_mesh"]["phase_seconds"] = time.perf_counter() - start
         print(f"serve mesh: phase 19 took {record['serving_mesh']['phase_seconds']:.1f} s", flush=True)
     shutil.rmtree(fit_root)  # made anew from the seed by every run
+    start = time.perf_counter()
+    bench_on_card(record)
+    record["bench"]["phase_seconds"] = time.perf_counter() - start
+    print(f"bench: phase 20 took {record['bench']['phase_seconds']:.1f} s", flush=True)
 
     summary = kernel_summary(rows + backward_rows, train_launches, serve_launches, fused_rows, fused_launches,
                              path_launches)

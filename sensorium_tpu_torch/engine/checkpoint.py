@@ -17,7 +17,9 @@ Two kinds, both msgpack written byte for byte as flax writes them
   key (a replicated one) is written once. The tensors of a model axis's
   slice k of n are keyed ``<name>@model<k>of<n>``, so the processes that
   hold one slice share a key and the slices stay apart. The load reads
-  each process's keys straight into its live tensors. The JAX package's
+  each process's keys straight into its live tensors; a state written
+  over another model axis size is read whole, slice by slice, and
+  resliced (``MouseModel.load_train_state``). The JAX package's
   own ``.orbax`` directories (orbax) are not read here, nor the port's
   there: the msgpack train state is the format both packages share.
 

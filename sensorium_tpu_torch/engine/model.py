@@ -46,7 +46,8 @@ byte a one-process model's with the same values: a collective, which every
 process calls. ``load_train_state`` and ``load_model(mesh=)`` slice after
 reading. A ``.orbax`` path is the sharded train state
 (``engine/checkpoint.py``): every process writes and reads its own slices,
-a collective too. A distillation teacher stays whole on every process: it
+a collective too; one written over another model axis size is resliced as
+it is read. A distillation teacher stays whole on every process: it
 only runs an eval forward.
 """
 
@@ -225,6 +226,13 @@ class MouseModel:
             )
         return self._train_step
 
+    def _on_device(self, value) -> bool:
+        """Whether ``value`` is a tensor on this model's device ("cuda" is
+        the current card, whatever index the tensor's device names)."""
+        if not isinstance(value, torch.Tensor) or value.device.type != self.device.type:
+            return False
+        return self.device.index is None or value.device.index == self.device.index
+
     def _stage_inputs(self, inputs) -> torch.Tensor:
         """The batch inputs on the device, cast to bf16 on the host before the
         copy when the model's ``dtype`` is bf16, the teacher is None or its
@@ -233,7 +241,7 @@ class MouseModel:
         that cast, round-to-nearest-even either way, so only the copy halves;
         a teacher that is not bf16 would see rounded inputs, so it gets fp32.
         A tensor already on the device passes as it is."""
-        if isinstance(inputs, torch.Tensor) and inputs.device == self.device:
+        if self._on_device(inputs):
             return inputs
         inputs = torch.as_tensor(np.asarray(inputs, np.float32))
 
@@ -246,7 +254,10 @@ class MouseModel:
         return inputs.to(self.device)
 
     def _stage(self, batch: MiceBatch) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The batch on the device; a tensor already there passes as it is."""
         def to_device(a):
+            if self._on_device(a):
+                return a
             return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
 
         return self._stage_inputs(batch.inputs), to_device(batch.targets), to_device(batch.weights)
@@ -549,9 +560,9 @@ class MouseModel:
 
     def load_train_state(self, file_path) -> dict:
         """Restore a state ``save_train_state`` wrote into this model, built
-        from the same config; returns its ``extra``. A msgpack state loads
-        on any mesh; a ``.orbax`` one on a mesh of its ``model`` size (else
-        ``ValueError``: it is not resharded)."""
+        from the same config; returns its ``extra``. Either format loads on
+        any mesh: a ``.orbax`` state written over another ``model`` size is
+        resliced as it is read."""
         if self.state is None:
             raise RuntimeError("Call build_state() before load_train_state()")
         if Path(file_path).suffix == ".orbax":
@@ -619,11 +630,14 @@ class MouseModel:
         return out
 
     def _load_sharded(self, dir_path) -> dict:
+        """Read a sharded train state into this model. Over the model axis
+        size it was written over, each process reads its own keys into its
+        live tensors. Over another size, each process reads every saved
+        slice of each sliced tensor, joins them along the axis that
+        ``param_sharding_rules`` names and keeps its own slice of the whole,
+        as ``scatter_state_dict`` does."""
         meta, keys = ckpt.sharded_train_state_keys(dir_path)
-        saved, here = ckpt.model_axis_of(keys), (self.mesh.num_model if self.mesh is not None else 1)
-        if saved != here:
-            raise ValueError(f"{dir_path} was written over a model axis of size {saved}; this model's is {here}: "
-                             "a sharded train state is not resharded (load the msgpack train state instead)")
+        saved = ckpt.model_axis_of(keys)
         state = self.state
         tensors = self._module_tensors()
         if ("ema_params" in {k.split("/")[0] for k in keys}) != (state.ema_model is not None):
@@ -635,14 +649,36 @@ class MouseModel:
                 continue
             _, kind, name = key.split("/", 2)
             name = ckpt.SLICE_SUFFIX.sub("", name)
-            if self._key(f"optimizer/{kind}", name, shape) != key:
-                continue  # another slice's
+            shape = tuple(parameters[name].shape) if len(shape) else ()
+            key = self._key(f"optimizer/{kind}", name, shape)
+            if key in moments:
+                continue  # another slice of one already listed
             device = parameters[name].device if len(shape) else "cpu"
             tensors[key] = torch.empty(shape, dtype=dtype, device=device)
             moments[key] = (kind, name)
+        joins = {}  # this process's key -> (its tensor, the saved slices' keys, their axis, the tensor's name)
+        for key in list(tensors):
+            if key in keys:
+                continue
+            base = ckpt.SLICE_SUFFIX.sub("", key)
+            name = base.rsplit("/", 1)[1]
+            axis = tensor_lib.param_sharding_rules(name, tensors[key].shape)
+            pieces = ([ckpt.SLICE_KEY.format(key=base, index=i, count=saved) for i in range(saved)]
+                      if saved > 1 else [base])
+            if axis is None or any(piece not in keys for piece in pieces):
+                raise ValueError(f"{dir_path} holds no {key} and no slices of it: not a train state of this model")
+            joins[key] = (tensors.pop(key), pieces, axis, name)
+            for piece in pieces:
+                shape, dtype = keys[piece]
+                tensors[piece] = torch.empty(shape, dtype=dtype, device=joins[key][0].device)
         tensors["step"] = torch.zeros((), dtype=torch.int64)
         tensors["generator"] = torch.empty(keys["generator"][0], dtype=torch.uint8)
         ckpt.load_train_state_sharded(dir_path, tensors, process_group=self._process_group())
+        for key, (target, pieces, axis, name) in joins.items():
+            whole = torch.cat([tensors.pop(piece) for piece in pieces], axis)
+            with torch.no_grad():
+                target.copy_(tensor_lib.scatter_state_dict({name: whole}, self.mesh)[name])
+            tensors[key] = target
         index = {name: i for i, name in enumerate(parameters)}
         per_param: dict[int, dict] = {}
         for key, (kind, name) in moments.items():

@@ -8,7 +8,9 @@ depthwise (k,1,1) pieces:
   accumulated in fp32 and rounded once to the input dtype;
 * the depthwise convs go to the autograd Functions of ``ops/dw_kernels.py``:
   hand-written CUDA kernels forward and backward (their plain versions for
-  CPU tensors).
+  CPU tensors). ``SENSORIUM_DW_IMPL=cudnn`` sends them to PyTorch's grouped
+  ``conv3d`` instead, forward and backward (``_dw_implementation``), which
+  is how ``tools/bench.py --ab`` times a whole step both ways.
 
 All tensors are channels-last: 3-D data is (B, T, H, W, C), 1-D data is
 (B, T, C).
@@ -20,9 +22,14 @@ keeps fp32 products out of TF32), and the entry points call it.
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.nn.functional as F
 
 from sensorium_tpu_torch.ops.dw_kernels import dw_spatial, dw_temporal
+
+DW_IMPLEMENTATIONS = ("cuda", "cudnn")
 
 
 def set_matmul_policy() -> None:
@@ -67,6 +74,39 @@ def grouped_pointwise(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return yg.reshape(*x.shape[:-1], groups * cout_g).to(x.dtype)
 
 
+def _dw_implementation() -> str:
+    """The depthwise-conv route, from ``SENSORIUM_DW_IMPL`` (the counterpart
+    of the JAX package's switch between its Pallas kernels and XLA's conv):
+
+    * ``cuda`` (the default, unset or empty): the hand-written kernels of
+      ``ops/dw_kernels.py`` (their plain versions for CPU tensors);
+    * ``cudnn``: PyTorch's grouped ``conv3d``, with the library's backward.
+
+    Any other value raises ``ValueError``: there is no silent choice.
+    """
+    impl = os.environ.get("SENSORIUM_DW_IMPL") or "cuda"
+    if impl not in DW_IMPLEMENTATIONS:
+        raise ValueError(f"SENSORIUM_DW_IMPL={impl!r}: expected one of {DW_IMPLEMENTATIONS}")
+    return impl
+
+
+def _grouped_conv3d(x: torch.Tensor, kernel: torch.Tensor, stride: tuple, padding: tuple) -> torch.Tensor:
+    """The library route: x (B, T, H, W, C) as the (B, C, T, H, W) view of
+    the same memory, ``kernel`` (C, 1, kt, kh, kw), one group a channel; the
+    result is channels-last and contiguous, as the kernels' route gives it
+    (a copy only where the library wrote another layout).
+
+    On the CPU the input is copied to the contiguous (B, C, T, H, W) layout
+    first: there PyTorch's bf16 weight gradient of the temporal conv reads
+    uninitialized memory for a channels-last input and can return NaN
+    (``tests/test_torch_dw_impl.py``)."""
+    xc = x.permute(0, 4, 1, 2, 3)
+    if xc.device.type == "cpu":
+        xc = xc.contiguous()
+    y = F.conv3d(xc, kernel, stride=stride, padding=padding, groups=x.shape[-1])
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
 def depthwise_conv_spatial(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """Depthwise (1, k, k) conv over (H, W) with torch "same" padding k // 2.
 
@@ -75,7 +115,12 @@ def depthwise_conv_spatial(x: torch.Tensor, kernel: torch.Tensor, stride: int = 
     The kernel's gradient is rounded to x's dtype before the cast back to
     the parameter's, as in the JAX package.
     """
-    return dw_spatial(x, kernel.to(x.dtype), stride)
+    kernel = kernel.to(x.dtype)
+    if _dw_implementation() == "cudnn":
+        k, c = kernel.shape[0], kernel.shape[-1]
+        weight = kernel.permute(2, 0, 1).reshape(c, 1, 1, k, k)
+        return _grouped_conv3d(x, weight, (1, stride, stride), (0, k // 2, k // 2))
+    return dw_spatial(x, kernel, stride)
 
 
 def depthwise_conv_temporal(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -83,4 +128,9 @@ def depthwise_conv_temporal(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tens
 
     x: (B, T, H, W, C), kernel: (k, C), cast to x's dtype.
     """
-    return dw_temporal(x, kernel.to(x.dtype))
+    kernel = kernel.to(x.dtype)
+    if _dw_implementation() == "cudnn":
+        k, c = kernel.shape
+        weight = kernel.t().reshape(c, 1, k, 1, 1)
+        return _grouped_conv3d(x, weight, (1, 1, 1), (k // 2, 0, 0))
+    return dw_temporal(x, kernel)

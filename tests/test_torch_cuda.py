@@ -1050,3 +1050,49 @@ def test_dryrun_refuses_fewer_cards_than_ranks(cuda):
     count = torch.cuda.device_count()
     with pytest.raises(RuntimeError, match=f"needs {count + 1} cards, one a rank; {count} visible"):
         dryrun_multichip(count + 1, flagship=False)
+
+
+@pytest.mark.cuda
+def test_cudnn_route_matches_the_kernels_on_the_card(cuda, monkeypatch):
+    """``SENSORIUM_DW_IMPL=cudnn`` (grouped conv3d) against the default
+    route (the kernels) in fp32: forward and both gradients."""
+    from sensorium_tpu_torch.ops import conv
+
+    rng = np.random.default_rng(0)
+    cases = [(lambda x, w: conv.depthwise_conv_spatial(x, w, s), (4, 3, 17, 19, 40), (3, 3, 40)) for s in (1, 2)]
+    cases.append((conv.depthwise_conv_temporal, (4, 9, 6, 7, 40), (5, 40)))
+    for fn, x_shape, w_shape in cases:
+        x0, w0 = rand(rng, *x_shape).to(cuda), rand(rng, *w_shape).to(cuda)
+        results = []
+        for impl in ("cuda", "cudnn"):
+            monkeypatch.setenv("SENSORIUM_DW_IMPL", impl)
+            x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+            y = fn(x, w)
+            gx, gw = torch.autograd.grad((y * torch.cos(y)).sum(), (x, w))
+            results.append((y, gx, gw))
+        for got, expected in zip(results[1], results[0]):
+            torch.testing.assert_close(got, expected, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bench_headline_on_the_card(cuda):
+    """``python -m sensorium_tpu_torch.tools.bench``: the flagship training
+    headline, one contract line on the kernels' route with their launches."""
+    import json
+    import math
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-m", "sensorium_tpu_torch.tools.bench"],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["metric"] == "train_clips_per_sec_per_chip_b32_fwd_bwd" and line["unit"] == "clips/s"
+    assert math.isfinite(line["value"]) and line["value"] > 0
+    detail = line["detail"]
+    assert detail["dw_impl"] == "cuda" and detail["peak_memory_gb"] > 0 and detail["card"]
+    assert detail["kernel_launches_per_step"] == {"dw_spatial_fwd": 10, "dw_temporal_fwd": 19, "dw_spatial_dx": 9,
+                                                  "dw_spatial_dw": 9, "dw_temporal_dw": 9}

@@ -39,7 +39,8 @@ BF16_RTOL = 2.0**-8
 @pytest.fixture(autouse=True)
 def jax_dw_paths(monkeypatch):
     monkeypatch.setattr(pallas_dw, "INTERPRET", True)
-    monkeypatch.setenv("SENSORIUM_DW_IMPL", "xla")  # jconv stays on XLA
+    # Both packages on their default depthwise routes: jconv on XLA, the port on its kernels.
+    monkeypatch.delenv("SENSORIUM_DW_IMPL", raising=False)
 
 
 def rand(rng, *shape):

@@ -51,7 +51,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for name in ("tools.dwbench", "data.loader", "data.native", "engine.callbacks", "engine.checkpoint",
                  "utils.msgpack", "infer.submission", "cli.predict", "cli.import_torch", "cli.train",
                  "cli.download_data", "utils.profiling", "infer.export", "cli.export", "parallel.mesh",
-                 "parallel.tensor", "parallel.multihost"):
+                 "parallel.tensor", "parallel.multihost", "tools.bench", "tools.make_synth_data", "ops.conv"):
         assert f"sensorium_tpu_torch.{name}" in result["modules"]
 
 

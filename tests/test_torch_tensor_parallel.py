@@ -1,15 +1,17 @@
 """The port's tensor parallelism (``parallel/tensor.py``) and its sharded
 train state against one process and against the JAX package, on the CPU.
 
-Three layouts of gloo ranks from ``tests/torch_mesh_worker.py`` (2 threads
+Four layouts of gloo ranks from ``tests/torch_mesh_worker.py`` (2 threads
 each) run ``run_tp_scenarios`` once: ``{data: 2, model: 2}`` (4 ranks),
-``{data: 1, model: 2}`` (2 ranks) and ``{replica: 2, data: 1, model: 2}``
-(4 ranks); this process runs the same scenarios without a mesh. Every case
+``{data: 1, model: 2}`` (2 ranks), ``{replica: 2, data: 1, model: 2}``
+(4 ranks) and ``{data: 1, model: 4}`` (4 ranks; the tiny widths divide by
+4); this process runs the same scenarios without a mesh. Every case
 starts from one checkpoint of the JAX package's tiny model
 (``tests/test_engine.py``, ``build_state(seed=0)``) through
 ``init_from_checkpoint``. The JAX references are its ``MouseModel`` steps
-over ``create_mesh(num_data=2, num_model=2)`` and ``create_hybrid_mesh(
-num_slices=2, num_data=1, num_model=2)`` on 4 of the 8 CPU devices, with
+over ``create_mesh(num_data=2, num_model=2)``, ``create_mesh(num_data=1,
+num_model=4)`` and ``create_hybrid_mesh(num_slices=2, num_data=1,
+num_model=2)`` on 4 of the 8 CPU devices, with
 SGD (momentum 0.9) and an EMA of 0.9 over the same two batches. The
 tolerances are ``tests/test_parallel.py::
 test_tp_train_step_matches_single_device_numerics``': the loss 1e-5
@@ -57,8 +59,10 @@ LAYOUTS = {
     "d2m2": (4, 2, "", "mesh"),
     "d1m2": (2, 2, "", "mesh"),
     "hybrid": (4, 2, "2", "hybrid"),
+    "d1m4": (4, 4, "", "mesh4"),
 }
-LABELS = {"d2m2": "data2_model2", "d1m2": "data1_model2", "hybrid": "replica2_data1_model2"}
+LABELS = {"d2m2": "data2_model2", "d1m2": "data1_model2", "hybrid": "replica2_data1_model2",
+          "d1m4": "data1_model4"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -72,6 +76,7 @@ def few_threads():
 def jax_meshes() -> dict:
     devices = jax.devices()[:4]
     return {"mesh": jax_mesh.create_mesh(num_data=2, num_model=2, devices=devices),
+            "mesh4": jax_mesh.create_mesh(num_data=1, num_model=4, devices=devices),
             "hybrid": jax_mesh.create_hybrid_mesh(num_slices=2, num_data=1, num_model=2, devices=devices)}
 
 
@@ -124,12 +129,14 @@ def run_layout(job: Path, layout: str) -> subprocess.Popen:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """``(single, {layout: [rank outputs]}, {jax mesh kind: steps}, job dir)``."""
+    """``(single, {layout: [rank outputs]}, {jax mesh kind: steps}, job dir,
+    the one-process train state every layout reads)``."""
     job = tmp_path_factory.mktemp("tp_job")
     rng = np.random.default_rng(0)
     batches = {"tp0": random_batch(rng, 8), "tp1": random_batch(rng, 8)}
     inputs = {f"{name}/{key}": value for name, batch in batches.items() for key, value in batch.items()}
     inputs["probe"] = random_batch(rng, 8)["inputs"]
+    inputs.update({f"tp2/{key}": value for key, value in random_batch(rng, 8).items()})
     np.savez(job / "inputs.npz", **inputs)
     init = JaxMouseModel(worker.tiny_params())
     init.build_state(seed=0, learning_rate=worker.LR)
@@ -140,16 +147,14 @@ def runs(tmp_path_factory):
     single_model = MouseModel(worker.tp_params(worker.ADAMW), device="cpu")
     single_model.build_state(seed=3, learning_rate=worker.LR)
     single_model.save(job / "single_model.ckpt")
-    single_state = MouseModel(worker.tp_params(worker.SGD_MOMENTUM), device="cpu")
-    single_state.set_ema(worker.EMA_DECAY)
-    single_state.build_state(seed=0, learning_rate=worker.LR)
-    single_state.save_train_state(job / "single_state.orbax")
+    single_state = worker.write_single_state(job, inputs)
 
     procs = {}
     for layout in LAYOUTS:
         layout_dir = job / layout
         layout_dir.mkdir()
-        for name in ("inputs.npz", "init.ckpt", "init_softplus.ckpt", "single_model.ckpt", "single_state.orbax"):
+        for name in ("inputs.npz", "init.ckpt", "init_softplus.ckpt", "single_model.ckpt", "single_state.orbax",
+                     "single_state.ckpt"):
             (layout_dir / name).symlink_to(job / name)
         procs[layout] = run_layout(layout_dir, layout)
     # The references run while the ranks do.
@@ -165,7 +170,7 @@ def runs(tmp_path_factory):
         for rank, (proc, out) in enumerate(zip(layout_procs, outputs)):
             assert proc.returncode == 0, f"{layout} rank {rank}:\n{out}"
         ranks[layout] = [dict(np.load(job / layout / f"rank{rank}.npz")) for rank in range(len(layout_procs))]
-    return single, ranks, jax_runs, job
+    return single, ranks, jax_runs, job, single_state
 
 
 def tree(out: dict, prefix: str) -> dict:
@@ -190,7 +195,7 @@ def test_tp_step_matches_one_process_and_jax(runs, layout):
     """Two SGD-momentum steps with an EMA: the losses, weights, BN
     statistics, EMA and momentum of every rank against one process and
     against the JAX package's TP step over the same batches."""
-    single, ranks, jax_runs, _ = runs
+    single, ranks, jax_runs, _, _ = runs
     reference = jax_runs[LAYOUTS[layout][3]]
     for rank, out in enumerate(ranks[layout]):
         np.testing.assert_allclose(out["sgdm/losses"], single["sgdm/losses"], rtol=LOSS_RTOL)
@@ -207,7 +212,7 @@ def test_learnable_softplus_betas_get_the_whole_gradient(runs, layout):
     only: their gradient is summed over the model group, so the step is one
     process's and the JAX package's, and a model group's ranks hold the same
     betas bitwise."""
-    single, ranks, jax_runs, _ = runs
+    single, ranks, jax_runs, _, _ = runs
     reference = jax_runs[f"{LAYOUTS[layout][3]}/softplus"]
     betas = single["softplus/state/readout_softplus_beta"]
     assert not np.allclose(betas, worker.TINY_NN["softplus_beta"], rtol=0.0, atol=PARAM_ATOL)  # the steps move them
@@ -230,7 +235,7 @@ def test_learnable_softplus_betas_get_the_whole_gradient(runs, layout):
 def test_shards_are_jaxs(runs, layout):
     """The readout kernel's slice in the live weights, the EMA copy and the
     momentum, and a cortex kernel's, are the JAX package's shard shapes."""
-    _, ranks, jax_runs, _ = runs
+    _, ranks, jax_runs, _, _ = runs
     shapes = jax_runs[LAYOUTS[layout][3]]["shapes"]
     for out in ranks[layout]:
         for name in ("live", "ema", "momentum", "cortex"):
@@ -239,10 +244,11 @@ def test_shards_are_jaxs(runs, layout):
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_ranks_place_by_jax_device_order(runs, layout):
-    """Global rank r: model index r % 2, data index r // 2."""
-    _, ranks, _, _ = runs
+    """Global rank r: model index r % m, data index r // m, for a model axis of m."""
+    _, ranks, _, _, _ = runs
+    num_model = LAYOUTS[layout][1]
     for rank, out in enumerate(ranks[layout]):
-        assert out["mesh/index"].tolist() == [rank // 2, rank % 2]
+        assert out["mesh/index"].tolist() == [rank // num_model, rank % num_model]
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -250,7 +256,7 @@ def test_drop_rates_on_keep_a_model_groups_replicas_bitwise(runs, layout):
     """The masks are drawn for the global batch on every rank: the ranks of a
     model group hold bitwise-equal replicated weights, and the step is one
     process's."""
-    single, ranks, _, _ = runs
+    single, ranks, _, _, _ = runs
     outs = ranks[layout]
     for out in outs:
         np.testing.assert_allclose(out["dropout/losses"], single["dropout/losses"], rtol=LOSS_RTOL)
@@ -266,7 +272,7 @@ def test_drop_rates_on_keep_a_model_groups_replicas_bitwise(runs, layout):
 def test_adamw_with_a_global_norm_clip_matches_one_process(runs, layout):
     """Every step clipped: the norm is the whole model's, the sharded
     gradients' squares summed over the model group."""
-    single, ranks, _, _ = runs
+    single, ranks, _, _, _ = runs
     for out in ranks[layout]:
         # Adam's update hardly sees the gradient's scale: hold the norm itself too.
         assert out["sgdm/grad_norm"] == pytest.approx(float(single["sgdm/grad_norm"]), rel=LOSS_RTOL)
@@ -280,7 +286,7 @@ def test_adamw_with_a_global_norm_clip_matches_one_process(runs, layout):
 def test_predict_and_load_model_over_a_model_axis(runs, layout):
     """``predict`` on the EMA weights after the steps, and ``load_model(mesh=)``
     of a one-process checkpoint: one mouse and all mice."""
-    single, ranks, _, _ = runs
+    single, ranks, _, _, _ = runs
     for out in ranks[layout]:
         for key in ("predict/mouse1", "predict/all", "load_model/mouse1", "load_model/all"):
             assert out[key].shape == single[key].shape
@@ -292,7 +298,7 @@ def test_msgpack_files_under_tp_are_one_process_bytes(runs, layout):
     """The model checkpoint and the train state written under a model axis
     are byte for byte one process's from the same values; the stepped train
     state read by one process and written again is the same bytes."""
-    _, _, _, job = runs
+    _, _, _, job, _ = runs
     tp_files, single_files = job / layout / LABELS[layout], job / "single"
     for name in ("model.ckpt", "state.ckpt"):
         assert (tp_files / name).read_bytes() == (single_files / name).read_bytes(), name
@@ -303,8 +309,8 @@ def test_msgpack_files_under_tp_are_one_process_bytes(runs, layout):
     model.save_train_state(job / f"{layout}_again.ckpt", extra={"epoch": 1})
     assert (job / f"{layout}_again.ckpt").read_bytes() == (tp_files / "stepped_state.ckpt").read_bytes()
     # Only the first process writes: the layout's directory holds one set of files.
-    assert sorted(p.name for p in tp_files.iterdir()) == ["model.ckpt", "state.ckpt", "stepped_state.ckpt",
-                                                         "train_state.orbax"]
+    assert sorted(p.name for p in tp_files.iterdir()) == ["model.ckpt", "saved_state.ckpt", "state.ckpt",
+                                                         "stepped_state.ckpt", "train_state.orbax"]
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -312,7 +318,7 @@ def test_orbax_round_trip_restores_and_continues_bitwise(runs, layout):
     """``TestShardedCheckpoint``'s checks: ``extra``, the step, the shard
     shapes, the restored values bitwise (live, EMA, momentum, generator) and
     a continued step, bitwise in the port."""
-    _, ranks, _, job = runs
+    _, ranks, _, job, _ = runs
     for out in ranks[layout]:
         assert int(out["orbax/epoch"]) == 2 and int(out["orbax/step"]) == 1
         assert tuple(out["orbax/shape"]) == tuple(out["shapes/live"])
@@ -323,19 +329,91 @@ def test_orbax_round_trip_restores_and_continues_bitwise(runs, layout):
     assert (orbax / "meta.json").is_file() and (orbax / "state" / ".metadata").is_file()
 
 
+def assert_bitwise(got: dict, expected: dict, label: str) -> None:
+    assert expected and set(got) == set(expected), label
+    for name, value in expected.items():
+        np.testing.assert_array_equal(got[name], value, err_msg=f"{label} {name}")
+
+
+def assert_continues(got: dict, uninterrupted: dict, label: str) -> None:
+    """Two steps after a resume against the uninterrupted run: its first step
+    summed in another order (another model axis size), so at
+    ``test_tp_step_matches_one_process_and_jax``'s bounds."""
+    np.testing.assert_allclose(got["losses"], uninterrupted["losses"][1:], rtol=LOSS_RTOL, err_msg=label)
+    for part, kind in (("state", "weights"), ("ema", "weights"), ("momentum", "momentum")):
+        assert_close(tree(got, f"{part}/"), tree(uninterrupted, f"{part}/"), kind, f"{label} {part}:")
+
+
+def read_on_one_process(written: Path, twin: Path, inputs: dict) -> dict:
+    """A ``.orbax`` state and the msgpack state of the same values, each read
+    by a one-process model that then takes the two resumed steps: extra, the
+    step, the restored values and the continued ones (``_record_tp``)."""
+    out: dict = {}
+    models = []
+    for path in (written, twin):
+        model = MouseModel(worker.tp_params(worker.SGD_MOMENTUM), device="cpu")
+        model.set_ema(worker.EMA_DECAY)
+        model.build_state(seed=9, learning_rate=worker.LR)
+        out["epoch"] = model.load_train_state(path)["epoch"]
+        models.append(model)
+    out["step"] = models[0].state.step
+    worker._record_tp(out, "restored", models[0])
+    out["twin_bitwise"] = worker._bitwise(worker._local(models[0]), worker._local(models[1]))
+    losses = [[float(m.train_step(worker._batch(inputs, n))) for n in worker.RESUMED] for m in models]
+    out["twin_losses"] = losses[1]
+    out["continued_bitwise"] = worker._bitwise(worker._local(models[0]), worker._local(models[1]))
+    worker._record_tp(out, "continued", models[0], losses[0])
+    return out
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_orbax_of_another_model_axis_is_refused(runs, layout):
-    _, ranks, _, _ = runs
-    for out in ranks[layout]:
-        message = str(out["orbax/other_axis_error"])
-        assert "model axis of size 1" in message and "this model's is 2" in message
+def test_orbax_of_another_model_axis_resumes(runs, layout):
+    """A ``.orbax`` state read over another model axis size is resliced.
+    One process's state (model 1) on every rank of the layout (model 2 or
+    4), and a rank's state (model 2 or 4) on one process: the restored
+    values, gathered whole, are the saved ones bitwise (live, EMA, momentum,
+    step, generator); two more steps are bitwise those of the same values
+    read from the msgpack train state on the same mesh, and within the TP
+    bounds of the run that was not interrupted."""
+    single, ranks, _, job, saved = runs
+    inputs = dict(np.load(job / "inputs.npz"))
+    for rank, out in enumerate(ranks[layout]):
+        label = f"{layout} rank {rank}"
+        assert int(out["reshard/epoch"]) == 3 and int(out["reshard/step"]) == 1
+        np.testing.assert_array_equal(out["reshard/generator"], saved["generator"])
+        for part in ("state", "ema", "momentum"):
+            assert_bitwise(tree(out, f"reshard/restored/{part}/"), tree(saved, f"saved/{part}/"), f"{label} {part}")
+        assert bool(out["reshard/twin_bitwise"]) and bool(out["reshard/continued_bitwise"])
+        losses = out["reshard/continued_losses"]
+        assert np.array_equal(losses[0], losses[1]) and np.isfinite(losses).all()
+        assert_continues({"losses": losses[0], **tree(out, "reshard/continued/")},
+                         {"losses": out["uninterrupted/losses"], **tree(out, "uninterrupted/")}, label)
+
+    files = job / layout / LABELS[layout]
+    back = read_on_one_process(files / "train_state.orbax", files / "saved_state.ckpt", inputs)
+    assert back["epoch"] == 2 and back["step"] == 1
+    for part in ("state", "ema", "momentum"):
+        assert_bitwise(tree(back, f"restored/{part}/"), tree(ranks[layout][0], f"orbax_saved/{part}/"),
+                       f"{layout} on one process {part}")
+    assert back["twin_bitwise"] and back["continued_bitwise"]
+    assert back["continued/losses"].tolist() == back["twin_losses"]
+    assert_continues(tree(back, "continued/"), tree(single, "uninterrupted/"), f"{layout} on one process")
 
 
 def test_one_process_orbax_round_trip(runs):
-    """The same scenario without a mesh: the sharded format needs no process group."""
-    single, _, _, _ = runs
+    """The same scenario without a mesh: the sharded format needs no process
+    group; a state written over a model axis of 2 reads back on one process,
+    resliced, to the values the ranks saved."""
+    single, ranks, _, job, saved = runs
     assert int(single["orbax/epoch"]) == 2 and bool(single["orbax/restored_bitwise"])
-    assert bool(single["orbax/continued_bitwise"]) and str(single["orbax/other_axis_error"]) == ""
+    assert bool(single["orbax/continued_bitwise"])
+    assert int(single["reshard/step"]) == 1 and bool(single["reshard/continued_bitwise"])
+    assert_bitwise(tree(single, "reshard/restored/state/"), tree(saved, "saved/state/"), "one process")
+    files = job / "d1m2" / LABELS["d1m2"]
+    back = read_on_one_process(files / "train_state.orbax", files / "saved_state.ckpt",
+                               dict(np.load(job / "inputs.npz")))
+    assert_bitwise(tree(back, "restored/state/"), tree(ranks["d1m2"][0], "orbax_saved/state/"), "model 2 -> 1")
+    assert back["twin_bitwise"] and back["continued_bitwise"]
 
 
 def test_jax_written_orbax_directory_is_refused(tmp_path):

@@ -149,6 +149,7 @@ def tp_params(optimizer: tuple, drop: bool = False, grad_clip: float = 0.0,
 
 
 SGD_MOMENTUM = ("SGD", {"lr": LR, "momentum": 0.9})
+RESUMED = ["tp1", "tp2"]  # the steps a resumed train state takes after "tp0"
 ADAMW = ("AdamW", {"lr": LR, "weight_decay": 0.05})
 
 
@@ -261,6 +262,9 @@ def run_tp_scenarios(mesh, inputs: dict, job_dir: Path, label: str) -> dict:
     model = _tp_model(tp_params(SGD_MOMENTUM), mesh, init)
     steps(model, ["tp0"])
     model.save_train_state(files / "train_state.orbax", extra={"epoch": 2})
+    # The same values whole, and as a msgpack train state, for the reads over another model axis size.
+    _record_tp(out, "orbax_saved", model)
+    model.save_train_state(files / "saved_state.ckpt", extra={"epoch": 2})
     resumed = _tp_model(tp_params(SGD_MOMENTUM), mesh, init, seed=9)
     extra = resumed.load_train_state(files / "train_state.orbax")
     out["orbax/epoch"] = np.int64(extra["epoch"])
@@ -270,8 +274,37 @@ def run_tp_scenarios(mesh, inputs: dict, job_dir: Path, label: str) -> dict:
     out["orbax/continued_losses"] = np.asarray([steps(model, ["tp1"]), steps(resumed, ["tp1"])], np.float64)
     out["orbax/continued_bitwise"] = np.bool_(_bitwise(_local(model), _local(resumed)))
 
-    # A sharded state written over another model axis is refused.
-    out["orbax/other_axis_error"] = np.str_(_error(lambda: resumed.load_train_state(job_dir / "single_state.orbax")))
+    # A sharded state written by one process (a model axis of 1) read over this mesh's, and the
+    # same values read from the msgpack train state: both take two more steps.
+    onto = _tp_model(tp_params(SGD_MOMENTUM), mesh, init, seed=9)
+    extra = onto.load_train_state(job_dir / "single_state.orbax")
+    out["reshard/epoch"] = np.int64(extra["epoch"])
+    out["reshard/step"] = np.int64(onto.state.step)
+    out["reshard/generator"] = onto.state.generator.get_state().numpy().copy()
+    _record_tp(out, "reshard/restored", onto)
+    twin = _tp_model(tp_params(SGD_MOMENTUM), mesh, init, seed=9)
+    twin.load_train_state(job_dir / "single_state.ckpt")
+    out["reshard/twin_bitwise"] = np.bool_(_bitwise(_local(onto), _local(twin)))
+    out["reshard/continued_losses"] = np.asarray([steps(onto, RESUMED), steps(twin, RESUMED)], np.float64)
+    out["reshard/continued_bitwise"] = np.bool_(_bitwise(_local(onto), _local(twin)))
+    _record_tp(out, "reshard/continued", onto)
+
+    # The run the resumed ones continue, uninterrupted over this mesh.
+    model = _tp_model(tp_params(SGD_MOMENTUM), mesh, init)
+    _record_tp(out, "uninterrupted", model, steps(model, ["tp0", *RESUMED]))
+    return out
+
+
+def write_single_state(job_dir: Path, inputs: dict) -> dict:
+    """One process (no mesh) steps the ``init.ckpt`` model once and writes
+    ``single_state.orbax`` (a model axis of 1) and ``single_state.ckpt``;
+    returns what it saved, whole (``_record_tp``), with its generator."""
+    model = _tp_model(tp_params(SGD_MOMENTUM), None, job_dir / "init.ckpt")
+    model.train_step(_batch(inputs, "tp0"))
+    model.save_train_state(job_dir / "single_state.orbax", extra={"epoch": 3})
+    model.save_train_state(job_dir / "single_state.ckpt", extra={"epoch": 3})
+    out: dict = {"generator": model.state.generator.get_state().numpy().copy()}
+    _record_tp(out, "saved", model)
     return out
 
 
