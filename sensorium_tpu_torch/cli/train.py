@@ -22,8 +22,9 @@ fold out:
   finds, the flag's first;
 * a SIGTERM saves the train state and exits with code 75 (EX_TEMPFAIL);
   rerun with ``--resume`` to go on;
-* ``--trace DIR`` profiles the first fold, ``--debug-nans`` raises at the
-  first op that produces a NaN.
+* ``--trace DIR`` profiles the first fold (and writes ``DIR/spans.json``:
+  the program's spans, with BN's and the update's seconds on the card),
+  ``--debug-nans`` raises at the first op that produces a NaN.
 
 Where a fold runs:
 
@@ -115,8 +116,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--debug-nans", action="store_true",
                         help="raise at the first op that produces a NaN, with its name")
     parser.add_argument("--trace", default=None, type=str, metavar="DIR",
-                        help="write a torch.profiler trace of the first trained fold into DIR (use with a "
-                             "short run: traces grow with wall time)")
+                        help="write a torch.profiler trace of the first trained fold and its spans' totals "
+                             "(spans.json) into DIR (use with a short run: traces grow with wall time)")
     parser.add_argument("--fold-procs", default="1", type=str,
                         help="train up to N folds at once, one single-card subprocess a fold; 'auto' is the "
                              "visible card count")

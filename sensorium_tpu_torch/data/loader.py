@@ -3,9 +3,10 @@
 A thread pool gathers samples from memory-mapped arrays (NumPy and the
 native library release the GIL) and writes them straight into the rows of a
 preallocated batch (``dataset.fill_into``); a small queue keeps batches ready
-ahead of the card. A dataset without fixed row shapes (``row_shapes`` None)
-goes through ``get`` and ``collate_mice_batch`` instead. Batches are numpy
-``MiceBatch``es; ``MouseModel`` stages them on the device.
+ahead of the card, and the consumer's wait on it is the span ``loader.wait``
+(``utils/profiling.py``). A dataset without fixed row shapes (``row_shapes``
+None) goes through ``get`` and ``collate_mice_batch`` instead. Batches are
+numpy ``MiceBatch``es; ``MouseModel`` stages them on the device.
 
 ``shard=(index, extent)`` makes the loader fill only the rows of each global
 batch that shard ``index`` of a data-parallel mesh holds
@@ -27,6 +28,7 @@ import numpy as np
 
 from sensorium_tpu_torch.data.datasets import MiceBatch, collate_mice_batch
 from sensorium_tpu_torch.parallel.mesh import shard_rows
+from sensorium_tpu_torch.utils.profiling import span
 
 
 def resolve_workers(num_threads: int) -> int:
@@ -153,7 +155,8 @@ class MiceDataLoader:
         producer.start()
         try:
             while True:
-                item = out_queue.get()
+                with span("loader.wait"):
+                    item = out_queue.get()
                 if item is None:
                     return
                 if isinstance(item, BaseException):

@@ -77,6 +77,7 @@ from sensorium_tpu_torch.models.registry import get_nn_module
 from sensorium_tpu_torch.parallel import mesh as mesh_lib
 from sensorium_tpu_torch.parallel import tensor as tensor_lib
 from sensorium_tpu_torch.utils.device import fetch_to_host, resolve_device
+from sensorium_tpu_torch.utils.profiling import span
 
 
 class MouseModel:
@@ -254,13 +255,15 @@ class MouseModel:
         return inputs.to(self.device)
 
     def _stage(self, batch: MiceBatch) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The batch on the device; a tensor already there passes as it is."""
+        """The batch on the device (the span ``fit.stage``); a tensor already
+        there passes as it is."""
         def to_device(a):
             if self._on_device(a):
                 return a
             return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
 
-        return self._stage_inputs(batch.inputs), to_device(batch.targets), to_device(batch.weights)
+        with span("fit.stage"):
+            return self._stage_inputs(batch.inputs), to_device(batch.targets), to_device(batch.weights)
 
     def _shard(self, batch: MiceBatch, train: bool) -> MiceBatch:
         """This process's rows of a global batch: each microbatch's slice for

@@ -15,6 +15,10 @@ Counterpart of ``sensorium_tpu/engine/steps.py``. One train step:
   update count, the optimizer step, and the EMA over parameters and BN
   statistics.
 
+The gradient reset, the update (clip, lr and optimizer step) and the EMA
+are spans (``utils/profiling.py``): ``step.zero_grad``, ``step.optimizer``
+and ``step.ema``.
+
 With a data-parallel ``mesh`` the step gets this process's rows of the
 global batch (its slice of each microbatch, ``parallel.mesh.shard_rows``)
 and runs its forwards and backwards under ``parallel.mesh.active``: BN
@@ -44,6 +48,7 @@ from sensorium_tpu_torch.engine.losses import inject_distill_targets
 from sensorium_tpu_torch.engine.state import TrainState
 from sensorium_tpu_torch.parallel import mesh as mesh_lib
 from sensorium_tpu_torch.parallel.tensor import param_sharding_rules
+from sensorium_tpu_torch.utils.profiling import span
 
 
 def make_train_step(
@@ -79,7 +84,8 @@ def make_train_step(
             )
         model, optimizer = state.model, state.optimizer
         model.train()
-        optimizer.zero_grad(set_to_none=True)
+        with span("step.zero_grad"):
+            optimizer.zero_grad(set_to_none=True)
         chunk = batch // iter_size
         total = torch.zeros((), dtype=torch.float32, device=inputs.device)
         with mesh_lib.active(mesh):
@@ -93,18 +99,20 @@ def make_train_step(
         if mesh is not None:
             mesh_lib.reduce_gradients(mesh, model.parameters())
             mesh_lib.all_reduce(mesh, total)
-        if grad_clip > 0.0:
-            if mesh_lib.tensor_parallel(mesh):
-                clip_sharded_grad_norm_(model, grad_clip, mesh)
-            else:
-                torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
-        if schedule is not None:
-            lr = float(schedule(state.step))
-            for group in optimizer.param_groups:
-                group["lr"] = lr
-        optimizer.step()
+        with span("step.optimizer"):
+            if grad_clip > 0.0:
+                if mesh_lib.tensor_parallel(mesh):
+                    clip_sharded_grad_norm_(model, grad_clip, mesh)
+                else:
+                    torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
+            if schedule is not None:
+                lr = float(schedule(state.step))
+                for group in optimizer.param_groups:
+                    group["lr"] = lr
+            optimizer.step()
         if ema_decay > 0.0:
-            ema_update(ema_tensors(state.ema_model), ema_tensors(model), ema_decay)
+            with span("step.ema"):
+                ema_update(ema_tensors(state.ema_model), ema_tensors(model), ema_decay)
         state.step += 1
         return total
 

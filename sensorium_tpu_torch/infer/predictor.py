@@ -37,6 +37,11 @@ by blending overlapping windows at every valid anchor (stride 1), with
   card for the blend. Without a mesh there is one replica: the same code.
   Trials spread over hosts through ``predict_mouse_split``'s
   ``trial_shard`` instead.
+* Spans (``utils/profiling.py``): a trial's upload (``predict.upload``:
+  ``stage_trial``), the stack's assembly and its copies to the replicas
+  (``predict.stage``), each chunk's window gather (``predict.gather``),
+  each chunk's scatter-adds and the final divide (``predict.blend``), and
+  ``predict_trial``'s copy to the host (``predict.fetch``).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from sensorium_tpu_torch.ops.conv import set_matmul_policy
 from sensorium_tpu_torch.parallel import mesh as mesh_lib
 from sensorium_tpu_torch.parallel import tensor as tensor_lib
 from sensorium_tpu_torch.utils.device import fetch_to_host, resolve_device
+from sensorium_tpu_torch.utils.profiling import span
 
 
 def get_blend_weights(name: str, size: int) -> np.ndarray:
@@ -211,29 +217,31 @@ class Predictor:
     def stage_trial(
         self, video: np.ndarray, behavior: np.ndarray, pupil_center: np.ndarray
     ) -> StagedTrial:
-        """Upload one trial's compact arrays and its window plan once."""
-        length = video.shape[-1]
-        anchors = self.indexes_generator.valid_anchors(length)
-        if len(anchors) == 0:
-            # Trial shorter than one window: the reference loop runs zero
-            # iterations and the blend denominator clamps to 1 -> zeros.
-            return StagedTrial(length, False, (), None)
-        windows = torch.from_numpy(self.indexes_generator.windows(anchors)).to(self.device)
+        """Upload one trial's compact arrays and its window plan once (the
+        span ``predict.upload``)."""
+        with span("predict.upload"):
+            length = video.shape[-1]
+            anchors = self.indexes_generator.valid_anchors(length)
+            if len(anchors) == 0:
+                # Trial shorter than one window: the reference loop runs zero
+                # iterations and the blend denominator clamps to 1 -> zeros.
+                return StagedTrial(length, False, (), None)
+            windows = torch.from_numpy(self.indexes_generator.windows(anchors)).to(self.device)
 
-        device_assembly = isinstance(self.inputs_processor, StackInputsProcessor)
-        if device_assembly:
-            width, height = self.inputs_processor.size
-            device_assembly = video.shape[0] <= height and video.shape[1] <= width
-        if device_assembly:
-            trial_args = (
-                self._to_device(np.transpose(video, (2, 0, 1))),
-                self._to_device(behavior),
-                self._to_device(pupil_center),
-            )
-        else:
-            # Raises the processor's canvas-size error for oversize frames.
-            trial_args = (self._to_device(self.inputs_processor(video, behavior, pupil_center)),)
-        return StagedTrial(length, not device_assembly, trial_args, windows)
+            device_assembly = isinstance(self.inputs_processor, StackInputsProcessor)
+            if device_assembly:
+                width, height = self.inputs_processor.size
+                device_assembly = video.shape[0] <= height and video.shape[1] <= width
+            if device_assembly:
+                trial_args = (
+                    self._to_device(np.transpose(video, (2, 0, 1))),
+                    self._to_device(behavior),
+                    self._to_device(pupil_center),
+                )
+            else:
+                # Raises the processor's canvas-size error for oversize frames.
+                trial_args = (self._to_device(self.inputs_processor(video, behavior, pupil_center)),)
+            return StagedTrial(length, not device_assembly, trial_args, windows)
 
     @torch.inference_mode()
     def run_staged(self, staged: StagedTrial, mouse_index: int) -> torch.Tensor:
@@ -242,22 +250,25 @@ class Predictor:
         resp_acc = torch.zeros((num_neurons, staged.length), dtype=torch.float32, device=self.device)
         if staged.windows is None:
             return resp_acc
-        if staged.hoststack:
-            (trial_inputs,) = staged.trial_args
-        else:
-            width, height = self.inputs_processor.size
-            trial_inputs = assemble_trial_stack(
-                *staged.trial_args, height, width, self.inputs_processor.pad_fill_value
-            )
+        with span("predict.stage"):
+            if staged.hoststack:
+                (trial_inputs,) = staged.trial_args
+            else:
+                width, height = self.inputs_processor.size
+                trial_inputs = assemble_trial_stack(
+                    *staged.trial_args, height, width, self.inputs_processor.pad_fill_value
+                )
+            replica_inputs = [trial_inputs.to(device) for _, device in self.replicas]  # once a trial
         blend_acc = torch.zeros(staged.length, dtype=torch.float32, device=self.device)
         models = [model for model, _ in self.replicas]
-        replica_inputs = [trial_inputs.to(device) for _, device in self.replicas]  # once a trial
         for start in range(0, staged.windows.shape[0], self.chunk_size):
             windows = staged.windows[start : start + self.chunk_size]  # (C, S)
             flat, resp, blend = chunk_updates(models, replica_inputs, windows, self.blend_weights, mouse_index)
-            resp_acc.index_add_(1, flat, resp)
-            blend_acc.index_add_(0, flat, blend)
-        return resp_acc / blend_acc.clamp(min=1.0)
+            with span("predict.blend"):
+                resp_acc.index_add_(1, flat, resp)
+                blend_acc.index_add_(0, flat, blend)
+        with span("predict.blend"):
+            return resp_acc / blend_acc.clamp(min=1.0)
 
     def predict_trial_device(
         self,
@@ -277,7 +288,9 @@ class Predictor:
         mouse_index: int,
     ) -> np.ndarray:
         """video (H, W, T), behavior / pupil_center (2, T) -> (N, T) float32."""
-        return self.predict_trial_device(video, behavior, pupil_center, mouse_index).cpu().numpy()
+        result = self.predict_trial_device(video, behavior, pupil_center, mouse_index)
+        with span("predict.fetch"):
+            return result.cpu().numpy()
 
     def predict_trial_data(self, trial_data: dict, mouse_index: int) -> np.ndarray:
         """Predict a trial of ``get_mouse_data``'s catalog."""
@@ -288,8 +301,9 @@ def _window_forward(model, trial_inputs: torch.Tensor, windows: torch.Tensor, mo
     """The single-mouse forward of the (C, S) windows of a (5, T, H, W)
     trial stack -> (C, N, S) fp32."""
     count, size = windows.shape
-    batch = trial_inputs.index_select(1, windows.reshape(-1))  # (5, C*S, H, W)
-    batch = batch.view(batch.shape[0], count, size, *batch.shape[2:]).transpose(0, 1)
+    with span("predict.gather"):
+        batch = trial_inputs.index_select(1, windows.reshape(-1))  # (5, C*S, H, W)
+        batch = batch.view(batch.shape[0], count, size, *batch.shape[2:]).transpose(0, 1)
     return model(batch, mouse_index=mouse_index).float()
 
 

@@ -72,6 +72,7 @@ from sensorium_tpu_torch.ops.pe import position_encoding_3d
 from sensorium_tpu_torch.ops.shuffle import channel_shuffle
 from sensorium_tpu_torch.ops.stochastic import channel_dropout, drop_path, drop_path_mask
 from sensorium_tpu_torch.parallel.tensor import copy_to_model, gather_from_model, local_product
+from sensorium_tpu_torch.utils.profiling import span
 
 
 def kaiming_normal_out(shape: Sequence[int], fan_out: int, generator: torch.Generator) -> nn.Parameter:
@@ -121,14 +122,19 @@ def tile_channels(x: torch.Tensor, features: int) -> torch.Tensor:
 
 
 class BatchNormAct(nn.Module):
+    """BN, then SiLU if ``act``: every BN of the model, each forward a span
+    ``bn_act.train``, ``bn_act.recompute`` (a rematerialized block's rerun)
+    or ``bn_act.eval``."""
+
     def __init__(self, features: int, act: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.bn = BatchNorm(features, dtype=dtype)
         self.act = act
 
     def forward(self, x: torch.Tensor, recompute: bool = False) -> torch.Tensor:
-        x = self.bn(x, recompute)
-        return F.silu(x) if self.act else x
+        with span("bn_act.recompute" if recompute else "bn_act.train" if self.training else "bn_act.eval"):
+            x = self.bn(x, recompute)
+            return F.silu(x) if self.act else x
 
 
 class SqueezeExcite(nn.Module):

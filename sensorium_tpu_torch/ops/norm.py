@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from sensorium_tpu_torch.parallel import mesh as mesh_lib
+from sensorium_tpu_torch.utils.profiling import span
 
 MOMENTUM = 0.1  # torch's: running = (1 - m) * running + m * batch
 
@@ -77,22 +78,25 @@ class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
+        # Unpacked outside the span: the first unpack in a rematerialized
+        # block reruns its forward, whose BN forwards are spans of their own.
         x, mean, inv_std, scale = ctx.saved_tensors
-        dims = tuple(range(x.ndim - 1))
-        sd = mean.dtype
-        g = dy.to(sd)
-        xhat = (x.to(sd) - mean) * inv_std
-        dbias = g.sum(dim=dims)
-        dscale = (g * xhat).sum(dim=dims)
-        dx = None
-        if ctx.needs_input_grad[0]:
-            n, total_bias, total_scale = ctx.count, dbias, dscale
-            if ctx.mesh is not None:
-                totals = mesh_lib.all_reduce(ctx.mesh, torch.cat([dbias, dscale]))
-                total_bias, total_scale = totals.chunk(2)
-            dx = ((g - total_bias / n) - xhat * (total_scale / n)) * (inv_std * scale)
-            dx = dx.to(x.dtype)
-        return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None, None, None, None
+        with span("bn.backward"):
+            dims = tuple(range(x.ndim - 1))
+            sd = mean.dtype
+            g = dy.to(sd)
+            xhat = (x.to(sd) - mean) * inv_std
+            dbias = g.sum(dim=dims)
+            dscale = (g * xhat).sum(dim=dims)
+            dx = None
+            if ctx.needs_input_grad[0]:
+                n, total_bias, total_scale = ctx.count, dbias, dscale
+                if ctx.mesh is not None:
+                    totals = mesh_lib.all_reduce(ctx.mesh, torch.cat([dbias, dscale]))
+                    total_bias, total_scale = totals.chunk(2)
+                dx = ((g - total_bias / n) - xhat * (total_scale / n)) * (inv_std * scale)
+                dx = dx.to(x.dtype)
+            return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None, None, None, None
 
 
 def batch_norm_train(x, scale, bias, shift, eps: float, dtype: torch.dtype, mesh=None):

@@ -1096,3 +1096,62 @@ def test_bench_headline_on_the_card(cuda):
     assert detail["dw_impl"] == "cuda" and detail["peak_memory_gb"] > 0 and detail["card"]
     assert detail["kernel_launches_per_step"] == {"dw_spatial_fwd": 10, "dw_temporal_fwd": 19, "dw_spatial_dx": 9,
                                                   "dw_spatial_dw": 9, "dw_temporal_dw": 9}
+
+
+@pytest.mark.cuda
+def test_spans_on_the_card_are_timed_by_events_without_a_wait(cuda):
+    """Under a profiler, a training step's and a trial's spans carry CUDA-event
+    seconds; ``bn.backward`` is recorded on autograd's device thread; the
+    flat spans' seconds fit in the traced window; ``span_totals`` leaves no
+    event unfolded."""
+    import collections
+    import time
+
+    from sensorium_tpu_torch.models.dwiseneuro import BatchNormAct
+    from sensorium_tpu_torch.utils import profiling
+
+    params = {
+        "nn_module": ("dwiseneuro", {**TINY, "remat_blocks": (1,)}),
+        "loss": ("mice_poisson", {"log_input": False}),
+        "optimizer": ("AdamW", {"lr": 1e-3, "weight_decay": 0.05}),
+        **ARGUS,
+    }
+    rng = np.random.default_rng(19)
+    weights = np.zeros((4, 2), np.float32)
+    weights[np.arange(4), [0, 1, 0, 1]] = 1.0
+    batch = MiceBatch(rng.uniform(0, 255, (4, 5, 4, 16, 16)).astype(np.float32),
+                      rng.gamma(1.5, 1.0, (4, 7, 4)).astype(np.float32), weights)
+    model = MouseModel(params, device="cuda")
+    model.set_ema(0.9)
+    model.build_state(seed=0)
+    predictor = Predictor.from_module(get_nn_module("dwiseneuro", TINY, device="cuda"), ARGUS, chunk_size=8,
+                                      device="cuda")
+    trial = (rng.uniform(0, 255, (12, 14, 40)).astype(np.float32), rng.uniform(0, 5, (2, 40)).astype(np.float32),
+             rng.uniform(0, 50, (2, 40)).astype(np.float32))
+    model.train_step(batch)
+    predictor.predict_trial(*trial, 1)
+    torch.cuda.synchronize()
+    profiling.reset_spans()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        start = time.perf_counter()
+        for _ in range(3):
+            model.train_step(batch)
+        predictor.predict_trial(*trial, 1)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - start
+    threads = collections.defaultdict(set)  # host threads: the card's timeline repeats each span
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CPU:
+            threads[event.name].add(event.thread)
+    assert threads["bn.backward"] and not threads["bn.backward"] & threads["step.zero_grad"]
+    totals = profiling.span_totals()
+    assert not profiling._REGISTRY.pending
+    assert {"bn_act.train", "bn_act.recompute", "bn_act.eval", "bn.backward", "step.zero_grad", "step.optimizer",
+            "step.ema", "fit.stage", "predict.upload", "predict.stage", "predict.gather", "predict.blend",
+            "predict.fetch"} <= set(totals)
+    assert all(device_s is not None and device_s > 0 for _, _, device_s in totals.values())
+    bns = sum(isinstance(m, BatchNormAct) for m in model.state.model.modules())
+    assert totals["bn_act.train"][0] == totals["bn.backward"][0] == 3 * bns
+    assert sum(device_s for _, _, device_s in totals.values()) <= window
+    profiling.reset_spans()
