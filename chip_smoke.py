@@ -31,7 +31,8 @@ Phases, each of which passes or makes the script exit non-zero:
    random weights, bf16) serves 3 requests through ``Predictor(chunk_size=32)``:
    300-frame trials of 36x64 video, mouse 0. Each answer must be a finite,
    non-negative (7863, 300) array, and the launch counters must show 9
-   spatial and 9 temporal kernel launches per chunk forward;
+   spatial and 9 temporal kernel launches per chunk forward, and one BN
+   kernel launch a BN (22 without SiLU, 30 with);
 5. card against CPU: the same weights in fp32, 2 windows through the
    single-mouse forward on the card (kernels) and on the CPU (plain
    versions); the largest difference must stay within 1e-3 of the largest
@@ -60,7 +61,10 @@ Phases, each of which passes or makes the script exit non-zero:
    the launch counters must match the config: per step 9 + 1 (block 1 is
    rematerialized) spatial forwards, 2 x 9 + 1 temporal forwards (the
    temporal input gradient is the forward kernel), and 9 of each backward
-   kernel. One more step runs under ``torch.profiler``;
+   kernel; the BN kernels' launches those of ``expected_bn_launches`` (per
+   BN forward the statistics, their finalize and the apply, block 1's 5
+   again; per BN backward the sums, their slab sum and dx). One more step
+   runs under ``torch.profiler``;
 8. card against CPU, training: the flagship weights in fp32, drop rates 0,
    2 clips; one loss and backward on the card (kernels) and on the CPU
    (plain versions). The loss within 1e-4 relative, every parameter's
@@ -82,6 +86,20 @@ Phases, each of which passes or makes the script exit non-zero:
    (``dwbench``'s ``chain`` and ``chain2d``), and both are recorded; beside
    them ``dw_spatial_fwd``'s time on the same x and w (``fwd_ms``), the
    yardstick for what the prologue costs;
+9b. batch norm: the BN kernels (``ops/bn_kernels.py``, ``csrc/bn_act.cu``)
+   at every BN of a flagship train step and chunk forward (52 BNs, 30 with
+   SiLU; block 1's 5 rerun in the step's backward), bf16: the statistics and
+   apply (training forward), the backward's sums and dx, and the eval apply,
+   each against its plain version within one rounding of each bf16
+   intermediate (the statistics within 1e-4), and run twice to the same bits.
+   Times are CUDA-event medians per call, summed over a step's and a chunk's
+   calls: the kernels (replayed from a CUDA graph, so that the card's time
+   and not the host's launches is timed at the small BNs), the plain
+   versions, and as a yardstick
+   ``F.batch_norm`` + ``F.silu`` on the (rows, C) view (``library_ms``,
+   timed only: the port never calls it). Beside them the byte bound of the
+   two passes each direction needs (training: x read twice and y written,
+   x and dy read twice and dx written, 16 bytes a bf16 element; eval: 4);
 10. dwbench: ``sensorium_tpu_torch.tools.dwbench`` at its own shapes, every
    impl; each must return a time, and ``fused`` must be within one bf16
    rounding of the activation of ``pallas``. This is the fused kernel's main
@@ -503,6 +521,20 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(sample(calls) for _ in range(reps))
 
 
+def graph_ms(fn) -> float:
+    """``cuda_ms`` of ``fn`` captured once in a CUDA graph: the card's time
+    alone, where a call's few small launches take the host longer to make
+    than the card to run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay)
+
+
 def spatial_2d_view(t):
     """(B, T, H, W, C) as the channels-last (B*T, C, H, W) view, without a copy."""
     b, f, h, w, c = t.shape
@@ -536,6 +568,35 @@ def flagship_kernel_shapes() -> list[dict]:
         for (h, c), b in temporal.items()
     ]
     return shapes
+
+
+def flagship_bn_calls(batch: int, frames: int) -> list[dict]:
+    """Every BN of one flagship forward of ``batch`` clips of ``frames``
+    frames: its place, x viewed as (rows, C), whether SiLU follows and
+    whether its input is a strided view (the stride-2 shortcut of a block
+    that keeps its width)."""
+    params = FLAGSHIP_NN_MODULE[1]
+    feats, strides = params["core_features"], params["spatial_strides"]
+    ratio, k = params["expansion_ratio"], params["spatial_kernel"]
+    size = FLAGSHIP_ARGUS["inputs_processor"][1]["size"][0]
+    n = batch * frames
+    calls = [{"name": "stem_bn", "block": None, "rows": n * size * size, "c": feats[0], "act": False,
+              "strided": False}]
+    in_f = feats[0]
+    for i, (f, s) in enumerate(zip(feats, strides)):
+        mid, out_size = in_f * ratio, (size + 2 * (k // 2) - k) // s + 1
+        rows_in, rows_out = n * size * size, n * out_size * out_size
+        for name, rows, c, act in (("bn_sc", rows_out, f, False), ("pw_bn", rows_in, mid, True),
+                                   ("spatial_bn", rows_out, mid, True), ("temporal_bn", rows_out, mid, True),
+                                   ("pwl_bn", rows_out, f, False)):
+            calls.append({"name": f"block_{i}.{name}", "block": i, "rows": rows, "c": c, "act": act,
+                          "strided": name == "bn_sc" and s > 1 and in_f == f})
+        in_f, size = f, out_size
+    for i, f in enumerate(params["cortex_features"]):
+        for name, act in (("bn", True), ("bn_sc", False)):
+            calls.append({"name": f"cortex_{i}.{name}", "block": None, "rows": n, "c": f, "act": act,
+                          "strided": False})
+    return calls
 
 
 def temporal_edge_cases(kernel: str) -> list[dict]:
@@ -686,7 +747,7 @@ def serve(record: dict, out_dir: Path) -> dict:
 
     from sensorium_tpu_torch.infer.predictor import Predictor
     from sensorium_tpu_torch.models.registry import get_nn_module
-    from sensorium_tpu_torch.ops import dw_kernels
+    from sensorium_tpu_torch.ops import bn_kernels, dw_kernels
 
     start = time.perf_counter()
     model = get_nn_module(*FLAGSHIP_NN_MODULE, device="cuda", generator=torch.Generator().manual_seed(SEED))
@@ -706,13 +767,13 @@ def serve(record: dict, out_dir: Path) -> dict:
     forwards = REQUESTS * math.ceil(windows / CHUNK)
 
     torch.cuda.reset_peak_memory_stats()
-    for key in dw_kernels.LAUNCHES:
-        dw_kernels.LAUNCHES[key] = 0
+    reset_launches()
     start = time.perf_counter()
     outputs = [predictor.predict_trial(*trial, mouse_index=0) for trial in trials]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     launches = dict(dw_kernels.LAUNCHES)
+    bn_launches = dict(bn_kernels.LAUNCHES)
 
     for i, out in enumerate(outputs):
         expected = (FLAGSHIP_NN_MODULE[1]["readout_outputs"][0], TRIAL_LENGTH)
@@ -724,11 +785,13 @@ def serve(record: dict, out_dir: Path) -> dict:
     for key in ("dw_spatial_fwd", "dw_temporal_fwd"):
         if launches[key] != per_forward * forwards:
             fail(f"{key}: {launches[key]} launches for {forwards} chunk forwards, expected {per_forward} each")
+    check_bn_launches("slice", bn_launches, expected_bn_launches(forwards=forwards))
     result = {
         "requests": REQUESTS,
         "windows_per_request": windows,
         "chunk_forwards": forwards,
         "launches": launches,
+        "bn_launches": bn_launches,
         "seconds": elapsed,
         "seconds_per_trial": elapsed / REQUESTS,
         "windows_per_second": REQUESTS * windows / elapsed,
@@ -999,7 +1062,7 @@ def train(record: dict, out_dir: Path) -> dict:
     import torch
 
     from sensorium_tpu_torch.engine.model import MouseModel
-    from sensorium_tpu_torch.ops import dw_kernels
+    from sensorium_tpu_torch.ops import bn_kernels, dw_kernels
 
     start = time.perf_counter()
     model = MouseModel(FLAGSHIP_TRAIN_ARGUS, device="cuda")
@@ -1015,13 +1078,13 @@ def train(record: dict, out_dir: Path) -> dict:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - start
     torch.cuda.reset_peak_memory_stats()
-    for key in dw_kernels.LAUNCHES:
-        dw_kernels.LAUNCHES[key] = 0
+    reset_launches()
     start = time.perf_counter()
     losses += [model.train_step(batch) for _ in range(TIMED_STEPS)]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     launches = dict(dw_kernels.LAUNCHES)
+    bn_launches = dict(bn_kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(v) for v in losses]
 
@@ -1037,6 +1100,7 @@ def train(record: dict, out_dir: Path) -> dict:
         "losses": losses,
         "launches": launches,
         "launches_per_step_expected": per_step,
+        "bn_launches": bn_launches,
     }
     print(f"train: {TIMED_STEPS} steps of batch {TRAIN_BATCH} in {elapsed:.3f} s: "
           f"{result['seconds_per_step']:.4f} s/step, {result['clips_per_second']:.1f} clips/s "
@@ -1050,6 +1114,7 @@ def train(record: dict, out_dir: Path) -> dict:
     for key, count in per_step.items():
         if launches[key] != count * TIMED_STEPS:
             fail(f"train: {key} launched {launches[key]} times in {TIMED_STEPS} steps, expected {count} per step")
+    check_bn_launches("train", bn_launches, expected_bn_launches(steps=TIMED_STEPS))
 
     val_loss, prediction, _, _ = model.val_step(batch)
     val_loss = float(val_loss)
@@ -1220,6 +1285,141 @@ def check_fused_kernel(peaks: tuple[float, float]) -> list[dict]:
     if bad:
         fail(f"{len(bad)} fused kernel checks disagree with the plain version: {bad}")
     return rows
+
+
+def check_bn_kernels(peaks: tuple[float, float]) -> dict:
+    """Phase 9b: the BN kernels at every BN of a flagship train step and chunk
+    forward, against their plain versions, timed beside ``F.batch_norm`` +
+    ``F.silu`` and the byte bound; returns the per-call rows and the sums."""
+    import torch
+    import torch.nn.functional as F
+
+    from sensorium_tpu_torch.ops import bn_kernels
+
+    bytes_per_s, _ = peaks
+    params = FLAGSHIP_NN_MODULE[1]
+    calls = flagship_bn_calls(CHUNK, FRAMES)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows, seen = [], {}
+    for call in calls:
+        key = (call["rows"], call["c"], call["act"], call["strided"])
+        if key in seen:
+            seen[key]["calls"].append(call["name"])
+            continue
+        r, c, act = call["rows"], call["c"], call["act"]
+        # A strided shortcut: every other row of a tensor twice as tall (the wrapper copies it, as in the model).
+        base = torch.randn(r * (2 if call["strided"] else 1), c, device="cuda", generator=gen)
+        spread = 0.5 + torch.rand(c, device="cuda", generator=gen)
+        offset = 2 * torch.randn(c, device="cuda", generator=gen)
+        x = (base * spread + offset).to(torch.bfloat16)[:: 2 if call["strided"] else 1]
+        del base
+        dy = torch.randn(r, c, device="cuda", generator=gen).to(torch.bfloat16)
+        shift = offset + 0.3 * torch.randn(c, device="cuda", generator=gen)
+        scale = 1 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+        bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        mean, var = offset.clone(), spread.square()
+        xc = x.contiguous()
+
+        def train_fwd():
+            return bn_kernels.bn_act_apply(x.contiguous(), bn_kernels.bn_stats(x.contiguous(), shift, scale, bias),
+                                           act)
+
+        stats = bn_kernels.bn_stats(xc, shift, scale, bias)
+
+        def train_bwd():
+            sums = bn_kernels.bn_act_grad(xc, dy, stats, act)
+            return bn_kernels.bn_act_dx(xc, dy, stats, sums, scale, r, act)
+
+        def plain_fwd():
+            return bn_kernels.bn_act_apply_plain(x, bn_kernels.bn_stats_plain(x, shift, scale, bias, None, None, 1e-5),
+                                                 act)
+
+        def plain_bwd():
+            sums = bn_kernels.bn_act_grad_plain(xc, dy, stats, act)
+            return bn_kernels.bn_act_dx_plain(xc, dy, stats, sums, scale, r, act)
+
+        def library_eval():
+            y = F.batch_norm(x, mean, var, scale, bias, training=False)
+            return F.silu(y) if act else y
+
+        lib_x = xc.clone().requires_grad_(True)
+        lib_scale, lib_bias = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        lib_mean, lib_var = mean.clone(), var.clone()  # F.batch_norm moves them in place
+
+        def library_train():
+            y = F.batch_norm(lib_x, lib_mean, lib_var, lib_scale, lib_bias, training=True)
+            if act:
+                y = F.silu(y)
+            return torch.autograd.grad(y, (lib_x, lib_scale, lib_bias), dy)
+
+        # Correctness: the forward (statistics and y), the backward's sums and dx, and the eval apply.
+        y, y_plain = train_fwd(), plain_fwd()
+        stats_plain = bn_kernels.bn_stats_plain(xc, shift, scale, bias, None, None, 1e-5)
+        z = torch.addcmul(stats[4], xc.float(), stats[3]).to(torch.bfloat16).float()
+        ref = bn_kernels.bn_act_apply_plain(xc, stats, act).float()
+        y_ok = bool(((y.float() - ref).abs() <= BF16_RTOL * (ref.abs() + (1.1 * z.abs() if act else 0)) + ATOL).all())
+        std = stats_plain[1].sqrt()
+        stats_ok = bool(((stats[0] - stats_plain[0]).abs() <= 1e-4 * (stats_plain[0].abs() + std)).all()
+                        and ((stats[1] - stats_plain[1]).abs() <= 1e-4 * stats_plain[1]).all())
+        sums = bn_kernels.bn_act_grad(xc, dy, stats, act)
+        sums_plain = bn_kernels.bn_act_grad_plain(xc, dy, stats, act)
+        sums_err = float(((sums - sums_plain).abs() / (sums_plain.abs() + 1.0)).max())
+        dx = train_bwd()
+        dx_plain = bn_kernels.bn_act_dx_plain(xc, dy, stats, sums, scale, r, act).float()
+        dx_err = float(((dx.float() - dx_plain).abs() / (dx_plain.abs().max() + ATOL)).max())
+        eval_y = bn_kernels.bn_act_eval(x.contiguous(), mean, var, scale, bias, 1e-5, act)
+        eval_err = float(((eval_y.float() - library_eval().float()).abs() / (library_eval().float().abs().max()
+                                                                             + ATOL)).max())
+        rerun_equal = (torch.equal(stats, bn_kernels.bn_stats(xc, shift, scale, bias))
+                       and torch.equal(sums, bn_kernels.bn_act_grad(xc, dy, stats, act)) and torch.equal(dx, train_bwd()))
+        ok = y_ok and stats_ok and rerun_equal and sums_err <= 1e-3 and dx_err <= 4 * BF16_RTOL and eval_err <= 4 * BF16_RTOL
+        del y, y_plain, z, ref, dx, dx_plain, eval_y
+        n = r * c * 2  # bytes of one bf16 tensor of the call: x, y, dy or dx
+        row = {
+            "calls": [call["name"]], "rows": r, "c": c, "act": act, "strided": call["strided"],
+            "stats_ok": stats_ok, "y_ok": y_ok, "sums_rel_err": sums_err, "dx_rel_err": dx_err,
+            "eval_rel_err_vs_library": eval_err, "rerun_equal": rerun_equal, "ok": ok,
+            "fwd_bound_ms": 3 * n / bytes_per_s * 1e3, "bwd_bound_ms": 5 * n / bytes_per_s * 1e3,
+            "eval_bound_ms": 2 * n / bytes_per_s * 1e3,
+            "fwd_ms": graph_ms(train_fwd), "bwd_ms": graph_ms(train_bwd),
+            "eval_ms": graph_ms(lambda: bn_kernels.bn_act_eval(x.contiguous(), mean, var, scale, bias, 1e-5, act)),
+            "plain_fwd_ms": cuda_ms(plain_fwd, reps=3, warmup=1), "plain_bwd_ms": cuda_ms(plain_bwd, reps=3, warmup=1),
+            "plain_eval_ms": cuda_ms(lambda: bn_kernels.bn_act_eval_plain(x, mean, var, scale, bias, 1e-5, act),
+                                     reps=3, warmup=1),
+            "library_train_ms": cuda_ms(library_train), "library_eval_ms": cuda_ms(library_eval),
+        }
+        seen[key] = row
+        rows.append(row)
+        print(f"kernel bn {r}x{c} act={act} strided={call['strided']} ok={ok} (stats {stats_ok}, y {y_ok}, sums "
+              f"{sums_err:.3g}, dx {dx_err:.3g}, eval vs library {eval_err:.3g}, rerun {rerun_equal}) "
+              f"fwd_ms={row['fwd_ms']:.4f} bwd_ms={row['bwd_ms']:.4f} eval_ms={row['eval_ms']:.4f} "
+              f"plain fwd/bwd/eval {row['plain_fwd_ms']:.3f}/{row['plain_bwd_ms']:.3f}/{row['plain_eval_ms']:.3f} "
+              f"library train/eval {row['library_train_ms']:.4f}/{row['library_eval_ms']:.4f} "
+              f"bound fwd/bwd/eval {row['fwd_bound_ms']:.4f}/{row['bwd_bound_ms']:.4f}/{row['eval_bound_ms']:.4f}", flush=True)
+        del x, xc, dy, lib_x, stats, sums
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} BN kernel checks disagree with the plain version: {bad}")
+    remat = set(params["remat_blocks"])
+    step_forwards = {c["name"]: 1 + (c["block"] in remat) for c in calls}
+
+    def total(field: str, per_call) -> float:
+        return sum(row[field] * sum(per_call(name) for name in row["calls"]) for row in rows)
+
+    step = {
+        "ms": total("fwd_ms", step_forwards.get) + total("bwd_ms", lambda _: 1),
+        "bound_ms": total("fwd_bound_ms", step_forwards.get) + total("bwd_bound_ms", lambda _: 1),
+        "plain_ms": total("plain_fwd_ms", step_forwards.get) + total("plain_bwd_ms", lambda _: 1),
+        "library_ms": total("library_train_ms", lambda _: 1),
+    }
+    chunk = {"ms": total("eval_ms", lambda _: 1), "bound_ms": total("eval_bound_ms", lambda _: 1),
+             "plain_ms": total("plain_eval_ms", lambda _: 1), "library_ms": total("library_eval_ms", lambda _: 1)}
+    for label, part in (("train step", step), ("chunk forward", chunk)):
+        print(f"kernel bn: per flagship {label}: {part['ms']:.3f} ms against a byte bound of {part['bound_ms']:.3f} "
+              f"ms ({100 * part['bound_ms'] / part['ms']:.1f}%); plain {part['plain_ms']:.2f} ms, "
+              f"F.batch_norm + F.silu {part['library_ms']:.3f} ms", flush=True)
+    return {"rows": rows, "step": step, "chunk": chunk}
 
 
 def run_dwbench(record: dict) -> dict:
@@ -1443,10 +1643,11 @@ def fit(record: dict, out_dir: Path) -> Path:
 
 
 def reset_launches() -> None:
-    from sensorium_tpu_torch.ops import dw_kernels
+    from sensorium_tpu_torch.ops import bn_kernels, dw_kernels
 
-    for key in dw_kernels.LAUNCHES:
-        dw_kernels.LAUNCHES[key] = 0
+    for counter in (dw_kernels.LAUNCHES, bn_kernels.LAUNCHES):
+        for key in counter:
+            counter[key] = 0
 
 
 def check_forward_launches(phase: str, launches: dict, forwards: int) -> None:
@@ -1456,6 +1657,29 @@ def check_forward_launches(phase: str, launches: dict, forwards: int) -> None:
     expected.update(dw_spatial_fwd=blocks * forwards, dw_temporal_fwd=blocks * forwards)
     if launches != expected:
         fail(f"{phase}: launches {launches} for {forwards} chunk forwards, expected {expected}")
+
+
+def expected_bn_launches(forwards: int = 0, steps: int = 0) -> dict:
+    """BN kernel launches of ``forwards`` flagship chunk forwards (one apply
+    a BN) and ``steps`` train steps (statistics, finalize and apply a BN
+    forward, block 1's rerun included; sums, their slab sum and dx a BN
+    backward), from the config."""
+    params = FLAGSHIP_NN_MODULE[1]
+    calls = flagship_bn_calls(CHUNK, FRAMES)
+    bns, act = len(calls), sum(c["act"] for c in calls)
+    rerun = [c for c in calls if c["block"] in params["remat_blocks"]]
+    forward_bns, forward_act = bns + len(rerun), act + sum(c["act"] for c in rerun)
+    return {"bn_stats": steps * forward_bns, "bn_finalize": steps * forward_bns,
+            "bn_apply": forwards * (bns - act) + steps * (forward_bns - forward_act),
+            "bn_silu_apply": forwards * act + steps * forward_act, "bn_grad": steps * (bns - act),
+            "bn_silu_grad": steps * act, "bn_grad_sum": steps * bns, "bn_dx": steps * (bns - act),
+            "bn_silu_dx": steps * act}
+
+
+def check_bn_launches(phase: str, launches: dict, expected: dict) -> None:
+    """The BN kernels' launches, kind by kind, beside ``check_forward_launches``."""
+    if launches != expected:
+        fail(f"{phase}: BN launches {launches}, expected {expected}")
 
 
 def gb(path: Path) -> float:
@@ -3282,7 +3506,7 @@ def _summed(rows: list[dict], name: str) -> dict:
 
 
 def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused_rows: list[dict],
-                   fused_launches: dict, path_launches: dict) -> list[dict]:
+                   fused_launches: dict, path_launches: dict, bn: dict) -> list[dict]:
     """One entry per kernel: sums over the calls of one flagship training step
     (batch 32 x 16 frames, the shapes of a 32-window chunk forward), bf16.
     ``launches`` counts the timed train steps, ``launches_serve`` the counted
@@ -3326,6 +3550,18 @@ def kernel_summary(rows: list[dict], launches: dict, serve_launches: dict, fused
                         "dw_spatial_fwd_ms is the spatial forward kernel alone on the same x and w",
         "scope": "sum over the 9 blocks' BN -> SiLU -> spatial dw of one flagship chunk forward "
                  "(32 windows x 16 frames), bf16; launches in the dwbench run (phase 10)",
+    })
+    out.append({
+        "name": "bn_act",
+        "route": "cuda",
+        "source": "sensorium_tpu_torch/csrc/bn_act.cu",
+        "replaces": "none: XLA fuses sensorium_tpu/ops/norm.py BatchNorm and nn.silu",
+        "train_step": bn["step"],
+        "chunk_forward": bn["chunk"],
+        "library_note": "library_ms is F.batch_norm + F.silu on the (rows, C) view, forward and backward "
+                        "through autograd for the step (block 1's rerun left out), the eval forward for the chunk",
+        "scope": "sum over the 52 BNs of one flagship train step (with block 1's 5 rerun forwards) and of one "
+                 "chunk forward (32 windows x 16 frames), bf16; kernels timed from CUDA graph replays",
     })
     return out
 
@@ -3406,6 +3642,7 @@ def main() -> int:
     train_card_against_cpu(record)
     fused_rows = check_fused_kernel(peaks)
     record["fused_kernel"] = fused_rows
+    record["bn_kernels"] = check_bn_kernels(peaks)
     fused_launches = run_dwbench(record)
     fit_root = fit(record, args.out)
     # Checkpoints, train states and the prediction tree are written outside --out.
@@ -3445,7 +3682,7 @@ def main() -> int:
     print(f"bench: phase 20 took {record['bench']['phase_seconds']:.1f} s", flush=True)
 
     summary = kernel_summary(rows + backward_rows, train_launches, serve_launches, fused_rows, fused_launches,
-                             path_launches)
+                             path_launches, record["bn_kernels"])
     record["summary"] = summary
     (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 

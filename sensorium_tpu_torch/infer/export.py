@@ -5,7 +5,8 @@ whole sliding-window trial program, is traced once with ``torch.export``,
 with the eval (EMA) weights inside it, and saved as a ``.pt2`` artifact.
 The depthwise convs appear in the graph as the custom ops
 ``sensorium::dw_spatial_fwd`` and ``sensorium::dw_temporal_fwd``
-(``ops/dw_kernels.py``).
+(``ops/dw_kernels.py``), each BN with its SiLU as ``sensorium::bn_act_eval``
+(``ops/bn_kernels.py``).
 
 Properties of the artifact:
 
@@ -48,7 +49,8 @@ from pathlib import Path
 import torch
 from torch.export.passes import move_to_device_pass
 
-import sensorium_tpu_torch.ops.dw_kernels  # noqa: F401  (registers the sensorium:: ops that artifacts call)
+import sensorium_tpu_torch.ops.bn_kernels  # noqa: F401  (registers the sensorium:: ops that artifacts call)
+import sensorium_tpu_torch.ops.dw_kernels  # noqa: F401
 
 EXPORT_SUFFIX = ".pt2"
 PLATFORMS = ("cuda", "cpu")

@@ -122,9 +122,9 @@ def tile_channels(x: torch.Tensor, features: int) -> torch.Tensor:
 
 
 class BatchNormAct(nn.Module):
-    """BN, then SiLU if ``act``: every BN of the model, each forward a span
-    ``bn_act.train``, ``bn_act.recompute`` (a rematerialized block's rerun)
-    or ``bn_act.eval``."""
+    """BN, then SiLU if ``act``, as one op (``ops/norm.py``): every BN of the
+    model, each forward a span ``bn_act.train``, ``bn_act.recompute`` (a
+    rematerialized block's rerun) or ``bn_act.eval``."""
 
     def __init__(self, features: int, act: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -133,8 +133,7 @@ class BatchNormAct(nn.Module):
 
     def forward(self, x: torch.Tensor, recompute: bool = False) -> torch.Tensor:
         with span("bn_act.recompute" if recompute else "bn_act.train" if self.training else "bn_act.eval"):
-            x = self.bn(x, recompute)
-            return F.silu(x) if self.act else x
+            return self.bn(x, recompute, self.act)
 
 
 class SqueezeExcite(nn.Module):

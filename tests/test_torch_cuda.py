@@ -21,7 +21,7 @@ from sensorium_tpu_torch.data.datasets import MiceBatch
 from sensorium_tpu_torch.engine.model import MouseModel
 from sensorium_tpu_torch.infer.predictor import Predictor
 from sensorium_tpu_torch.models.registry import get_nn_module
-from sensorium_tpu_torch.ops import dw_kernels
+from sensorium_tpu_torch.ops import bn_kernels, dw_kernels
 
 BF16_RTOL = 2.0**-8
 
@@ -1155,3 +1155,273 @@ def test_spans_on_the_card_are_timed_by_events_without_a_wait(cuda):
     assert totals["bn_act.train"][0] == totals["bn.backward"][0] == 3 * bns
     assert sum(device_s for _, _, device_s in totals.values()) <= window
     profiling.reset_spans()
+
+
+# ------------------------------------------------------------------- batch norm
+#
+# The BN kernels against their plain versions on the same card. The kernels
+# and the plain versions compute one fp32 formula from the same inputs in
+# other orders, then round to the compute dtype where the model rounds (the
+# BN output before SiLU, SiLU's output, SiLU's gradient, dx): two fp32 values
+# a few units apart may round to neighbouring bf16 values, one step (at most
+# 2**-7 of the value, BF16_STEP) apart, and that difference carries on
+# through what follows it (|silu'| <= 1.1, |silu''| <= 0.5). fp32
+# differences of order alone are held at 1e-5 of the terms; sums over rows at
+# BN_SUM_RTOL of the sum of the terms' magnitudes (fp32 sums of up to 2e6
+# terms in other orders; a bf16 step at a rare element is far below that).
+
+BF16_STEP = 2 * BF16_RTOL
+
+BN_STATS_RTOL = 1e-4  # fp32 statistics: sums of up to 2e6 terms, the shifted variance's cancellation
+BN_SUM_RTOL = 2e-5
+BN_CHUNK = 1 << 26  # elements a comparison holds in fp32 at once
+
+
+def bn_call_shapes(config_name: str, device) -> set:
+    """(x shape, act) of every BN call of one chunk forward (32 windows) of
+    the configuration's model on the card, read by hooks."""
+    import importlib
+
+    from sensorium_tpu_torch.models.dwiseneuro import BatchNormAct
+
+    config = importlib.import_module(f"sensorium_tpu_torch.configs.{config_name}").config
+    name, params = config["argus_params"]["nn_module"]
+    model = get_nn_module(name, params, device=device)
+    calls = set()
+    for module in model.modules():
+        if isinstance(module, BatchNormAct):
+            module.register_forward_pre_hook(lambda m, args: calls.add((tuple(args[0].shape), m.act)))
+    frames = config["argus_params"]["frame_stack"]["size"]
+    with torch.inference_mode():
+        model(torch.zeros(32, params["in_channels"], frames, *config["image_size"], device=device))
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def bn_operands(shape, dtype, gen, device) -> dict:
+    """x with per-channel means of a few units and spreads of 0.5-1.5, dy,
+    and the per-channel parameters and running statistics."""
+    c = shape[-1]
+
+    def randn(*size):
+        return torch.randn(*size, generator=gen, device=device)
+
+    spread, offset = 0.5 + torch.rand(c, generator=gen, device=device), 2 * randn(c)
+    return {"x": (randn(*shape) * spread + offset).to(dtype), "dy": randn(*shape).to(dtype),
+            "shift": offset + 0.3 * randn(c), "scale": 1 + 0.1 * randn(c), "bias": 0.1 * randn(c),
+            "mean": offset + 0.1 * randn(c), "var": (spread * (1 + 0.1 * randn(c))).square()}
+
+
+def bn_rows(t: torch.Tensor):
+    """(rows, C) chunks of t, each at most BN_CHUNK elements."""
+    flat = t.reshape(-1, t.shape[-1])
+    step = max(1, BN_CHUNK // flat.shape[1])
+    return [flat[i : i + step] for i in range(0, flat.shape[0], step)]
+
+
+def assert_bn_apply_close(got, x, dtype, act, a, b, label):
+    """got = round(silu(round(x*a + b))) (or its BN part) of the kernels,
+    against the same fp32 formula in PyTorch: a step of each rounding."""
+    rel = BF16_STEP if dtype == torch.bfloat16 else 1e-5
+    for got_rows, x_rows in zip(bn_rows(got), bn_rows(x)):
+        z = torch.addcmul(b, x_rows.float(), a).to(dtype)
+        ref = torch.nn.functional.silu(z) if act else z
+        bound = rel * (ref.float().abs() + (1.1 * z.float().abs() if act else 0)) + 1e-6
+        excess = ((got_rows.float() - ref.float()).abs() - bound).max().item()
+        assert excess <= 0, f"{label}: beyond one rounding by {excess:.3g}"
+
+
+def check_bn_kernels(shape, dtype, act, gen, device) -> None:
+    """bn_stats, bn_act_apply, bn_act_eval, bn_act_grad and bn_act_dx at one
+    shape against the plain versions, each given the kernels' own inputs."""
+    ops = bn_operands(shape, dtype, gen, device)
+    x, dy, shift, scale, bias = (ops[k] for k in ("x", "dy", "shift", "scale", "bias"))
+    label = f"{tuple(shape)} {dtype} act={act}"
+    running = [ops["mean"].clone(), ops["var"].clone()]
+    plain_running = [ops["mean"].clone(), ops["var"].clone()]
+    before = dict(bn_kernels.LAUNCHES)
+    stats = bn_kernels.bn_stats(x, shift, scale, bias, *running, 1e-5)
+    ref = bn_kernels.bn_stats_plain(x, shift, scale, bias, *plain_running, 1e-5)
+    mean = stats[0]
+    std = ref[1].sqrt()
+    # The shifted variance E[(x-c)^2] - (E[x]-c)^2 loses what the first term
+    # exceeds the variance by: its rounding is relative to E[(x-c)^2].
+    cancel = (ref[1] + (ref[0] - shift).square()) / ref[1]
+    assert ((mean - ref[0]).abs() <= BN_STATS_RTOL * (ref[0].abs() + std)).all(), f"{label}: mean"
+    for row, name in ((1, "var"), (2, "inv_std"), (3, "a")):
+        assert ((stats[row] - ref[row]).abs() <= BN_STATS_RTOL * cancel * ref[row].abs()).all(), f"{label}: {name}"
+    b_bound = BN_STATS_RTOL * (ref[4].abs() + stats[3].abs() * (cancel * ref[0].abs() + std))  # b = bias - mean * a
+    assert ((stats[4] - ref[4]).abs() <= b_bound).all(), f"{label}: b"
+    n = x.numel() // x.shape[-1]
+    torch.testing.assert_close(running[0], plain_running[0], rtol=1e-5, atol=BN_STATS_RTOL * std.max().item())
+    var_bound = BN_STATS_RTOL * (plain_running[1].abs() + cancel * ref[1] * n / max(n - 1, 1))
+    assert ((running[1] - plain_running[1]).abs() <= var_bound).all(), f"{label}: running var"
+
+    assert_bn_apply_close(bn_kernels.bn_act_apply(x, stats, act), x, dtype, act, stats[3], stats[4], label)
+    inv = torch.rsqrt(ops["var"] + 1e-5) * scale
+    assert_bn_apply_close(bn_kernels.bn_act_eval(x, ops["mean"], ops["var"], scale, bias, 1e-5, act), x, dtype,
+                          act, inv, bias - ops["mean"] * inv, f"{label} eval")
+
+    sums = bn_kernels.bn_act_grad(x, dy, stats, act)
+    terms = torch.zeros_like(sums)
+    rel = BF16_STEP if dtype == torch.bfloat16 else 1e-5
+    for x_rows, dy_rows, dx_rows in zip(bn_rows(x), bn_rows(dy), bn_rows(bn_kernels.bn_act_dx(
+            x, dy, stats, sums, scale, x.numel() // x.shape[-1], act))):
+        z = torch.addcmul(stats[4], x_rows.float(), stats[3]).to(dtype)
+        g = (torch.ops.aten.silu_backward(dy_rows, z) if act else dy_rows).float()
+        xhat = (x_rows.float() - stats[0]) * stats[2]
+        terms += torch.stack([g.abs().sum(0), (g * xhat).abs().sum(0)])
+        n = x.numel() // x.shape[-1]
+        mg, mgx, k = sums[0] / n, sums[1] / n, stats[2] * scale
+        ref_dx = (((g - mg) - xhat * mgx) * k).to(dtype).float()
+        flips = 0.5 * rel * dy_rows.float().abs() * z.float().abs() if act else 0  # a step of z, through silu''
+        order = 1e-5 * k.abs() * (g.abs() + mg.abs() + (xhat * mgx).abs())
+        bound = rel * (ref_dx.abs() + k.abs() * g.abs()) + k.abs() * flips + order + 1e-6
+        excess = ((dx_rows.float() - ref_dx).abs() - bound).max().item()
+        assert excess <= 0, f"{label}: dx beyond one rounding by {excess:.3g}"
+    plain_sums = bn_kernels.bn_act_grad_plain(x, dy, stats, act)
+    assert ((sums - plain_sums).abs() <= BN_SUM_RTOL * terms + 1e-6).all(), f"{label}: backward sums"
+    torch.cuda.synchronize()
+    launched = {k: bn_kernels.LAUNCHES[k] - before[k] for k in before}
+    silu = "silu_" if act else ""
+    assert launched == {"bn_stats": 1, "bn_finalize": 1, "bn_apply": 0, "bn_silu_apply": 0, "bn_grad": 0,
+                        "bn_silu_grad": 0, "bn_grad_sum": 1, "bn_dx": 0, "bn_silu_dx": 0,
+                        f"bn_{silu}apply": 2, f"bn_{silu}grad": 1, f"bn_{silu}dx": 1}, label
+
+
+@pytest.mark.cuda
+def test_bn_kernels_match_plain_at_every_bn_shape_of_both_configurations(cuda):
+    """Every (x shape) of the 52 BNs of a chunk forward of true_batch_001 and
+    distillation_001 (stem, each block's five, the cortex's six), in bf16 and
+    fp32, with SiLU and without; then channel tails (C not a multiple of the
+    vector width), two rows and a few wide rows."""
+    shapes = {shape for shape, _ in bn_call_shapes("true_batch_001", cuda) | bn_call_shapes("distillation_001", cuda)}
+    widths = {shape[-1] for shape in shapes}
+    assert {64, 128, 256, 448, 896, 1792, 384, 768, 1536, 1024, 2048, 4096} <= widths
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    edges = {(3, 5, 20), (2, 7, 22), (2, 9), (7, 3), (64, 5000), (300, 11)}
+    for shape in sorted(shapes, key=lambda s: -np.prod(s)) + sorted(edges):
+        for dtype in (torch.bfloat16, torch.float32):
+            for act in (True, False):
+                check_bn_kernels(shape, dtype, act, gen, cuda)
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_function_takes_a_strided_shortcut_and_reruns_bitwise(cuda, dtype):
+    """The strided shortcut of a stride-2 block (x[:, :, ::2, ::2]) gives what
+    its contiguous copy gives; two runs of the statistics, the output and
+    the gradients are bitwise equal (fixed-order sums, no atomics)."""
+    from sensorium_tpu_torch.ops.norm import batch_norm_train
+
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    ops = bn_operands((8, 16, 32, 32, 64), dtype, gen, cuda)
+    full, shift = ops["x"], ops["shift"]
+    dy = ops["dy"][:, :, ::2, ::2]
+    results = []
+    for x in (full[:, :, ::2, ::2], full[:, :, ::2, ::2].contiguous(), full[:, :, ::2, ::2]):
+        assert x.is_contiguous() == (len(results) == 1)
+        leaves = [t.clone().requires_grad_(True) for t in (x, ops["scale"], ops["bias"])]
+        y, mean, var = batch_norm_train(*leaves, shift, 1e-5, dtype, act=True)
+        y.backward(dy)
+        results.append([y, mean, var] + [t.grad for t in leaves])
+    for first, *others in zip(*results):
+        assert all(torch.equal(first, other) for other in others)
+
+
+def bn_counts(module) -> tuple[int, int, int, int]:
+    """BNs of the model and those with SiLU; those of its rematerialized blocks, and those with SiLU."""
+    from sensorium_tpu_torch.models.dwiseneuro import BatchNormAct
+
+    bns = [m for m in module.modules() if isinstance(m, BatchNormAct)]
+    rerun = [m for i in module.remat_set for m in getattr(module, f"block_{i}").modules()
+             if isinstance(m, BatchNormAct)]
+    return len(bns), sum(m.act for m in bns), len(rerun), sum(m.act for m in rerun)
+
+
+@pytest.mark.cuda
+def test_a_flagship_step_and_chunk_forward_run_bn_through_the_kernels_alone(cuda):
+    """One train step of true_batch_001 and one chunk forward launch the BN
+    kernels as the config says (52 BNs, 30 with SiLU; block 1's 5 rerun), and
+    the eager chain is gone: no ``addcmul``, and SiLU's own ops only for
+    the squeeze-excite gates."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sensorium_tpu_torch.configs.true_batch_001 import config
+    from sensorium_tpu_torch.models.dwiseneuro import SqueezeExcite
+
+    argus = config["argus_params"]
+    model = MouseModel(argus, device="cuda")
+    model.build_state(seed=0, learning_rate=1e-4)
+    module = model.state.model
+    bns, act, rerun, rerun_act = bn_counts(module)
+    assert (bns, act, rerun, rerun_act) == (52, 30, 5, 3)
+    gates = sum(isinstance(m, SqueezeExcite) for m in module.modules())
+    rng = np.random.default_rng(43)
+    size, frames = config["image_size"], argus["frame_stack"]["size"]
+    weights = np.zeros((32, 10), np.float32)
+    weights[np.arange(32), np.arange(32) % 10] = 1.0
+    batch = MiceBatch(rng.uniform(0, 255, (32, 5, frames, *size)).astype(np.float32),
+                      rng.gamma(1.5, 1.0, (32, max(argus["nn_module"][1]["readout_outputs"]), frames)).astype(
+                          np.float32), weights)
+    model.train_step(batch)
+    torch.cuda.synchronize()
+    counts = {}
+    for phase in ("train", "forward"):
+        before = dict(bn_kernels.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            if phase == "train":
+                model.train_step(batch)
+            else:
+                with torch.inference_mode():
+                    module.eval()(torch.from_numpy(batch.inputs).cuda())
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages()}
+        counts[phase] = ({k: bn_kernels.LAUNCHES[k] - before[k] for k in before},
+                         {k: ops.get(k, 0) for k in ("aten::addcmul", "aten::silu", "aten::silu_backward")})
+    plain, silu = bns - act, act
+    assert counts["train"] == (
+        {"bn_stats": bns + rerun, "bn_finalize": bns + rerun, "bn_apply": plain + rerun - rerun_act,
+         "bn_silu_apply": silu + rerun_act, "bn_grad": plain, "bn_silu_grad": silu, "bn_grad_sum": bns,
+         "bn_dx": plain, "bn_silu_dx": silu},
+        {"aten::addcmul": 0, "aten::silu": gates + len(module.remat_set), "aten::silu_backward": gates})
+    assert counts["forward"] == (
+        {**{k: 0 for k in bn_kernels.LAUNCHES}, "bn_apply": plain, "bn_silu_apply": silu},
+        {"aten::addcmul": 0, "aten::silu": gates, "aten::silu_backward": 0})
+    del model, module
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_trial_artifact_traces_and_serves_through_the_bn_ops(card_model, tmp_path):
+    """The trial artifact traced on the card holds each BN as one
+    ``sensorium::bn_act_eval`` node (SiLU nodes only for the squeeze-excite
+    gates) and serves through the kernel: the BN
+    launches come in chunk forwards of the model's BNs (with and without
+    SiLU), and nothing of the training path."""
+    from sensorium_tpu_torch.infer.export import export_model_file, load_exported
+
+    model, path = card_model
+    bns, act, _, _ = bn_counts(model.state.model)
+    trial = export_model_file(path, tmp_path / "trial.pt2", mouse_index=1, trial=True, src_hw=(12, 14),
+                              chunk_size=8, length_bucket=16, device="cuda")["artifact"]
+    program = torch.export.load(trial)
+    nodes = [node for gm in program.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
+             for node in gm.graph.nodes if node.op == "call_function"]
+    traced = sum("sensorium.bn_act_eval" in str(node.target) for node in nodes)
+    gates = sum(str(node.target) == "aten.silu.default" for node in nodes)
+    assert traced > 0 and traced % bns == 0 and gates == len(TINY["core_features"]) * traced // bns
+    rng = np.random.default_rng(44)
+    args = (torch.from_numpy(rng.uniform(0, 255, (32, 12, 14)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(0, 5, (2, 32)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(0, 50, (2, 32)).astype(np.float32)), torch.tensor(29, dtype=torch.int32))
+    before = dict(bn_kernels.LAUNCHES)
+    with torch.inference_mode():
+        out = load_exported(trial, device="cuda")(*(a.cuda() for a in args))
+    torch.cuda.synchronize()
+    launched = {k: bn_kernels.LAUNCHES[k] - before[k] for k in before}
+    forwards = launched["bn_silu_apply"] // act
+    assert forwards >= 1 and bool(torch.isfinite(out).all())
+    assert launched == {**{k: 0 for k in before}, "bn_apply": (bns - act) * forwards, "bn_silu_apply": act * forwards}

@@ -10,11 +10,14 @@ use the plain versions.
 
 from __future__ import annotations
 
+import socket
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sensorium_tpu.ops import conv as jconv
 from sensorium_tpu.ops import pallas_dw
@@ -22,7 +25,9 @@ from sensorium_tpu.ops.norm import BatchNorm as JaxBatchNorm
 from sensorium_tpu.ops.stochastic import channel_dropout as jax_channel_dropout
 from sensorium_tpu.ops.stochastic import drop_path as jax_drop_path
 from sensorium_tpu_torch.ops import dw_kernels
+from sensorium_tpu_torch.ops import bn_kernels
 from sensorium_tpu_torch.ops.norm import BatchNorm, batch_norm_train
+from sensorium_tpu_torch.parallel import mesh as mesh_lib
 from sensorium_tpu_torch.ops.stochastic import channel_dropout, drop_path, drop_path_mask
 
 BF16_RTOL = 2.0**-8
@@ -158,6 +163,146 @@ def test_batchnorm_recompute_keeps_the_shift_and_the_statistics():
     assert torch.equal(bn.mean, stats[0]) and torch.equal(bn.var, stats[1])
     with pytest.raises(RuntimeError, match="recompute"):
         BatchNorm(4).train()(x, recompute=True)
+
+
+def bn_act_grads(x, scale, bias, r, fn):
+    """y and the gradients of sum(y * r) by x, scale and bias, in fp32."""
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+    y = fn(*leaves)
+    (y.float() * r).sum().backward()
+    return [y.detach().float()] + [t.grad.float() for t in leaves]
+
+
+@pytest.mark.parametrize("act", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_act_function_matches_the_eager_chain_and_jax(dtype, act):
+    """The fused BN(+SiLU) Function (its plain version here) against BN's
+    formula followed by ``F.silu`` under autograd, rounded to the compute
+    dtype where the model rounds, and against JAX's ``BatchNorm`` +
+    ``nn.silu``: values and the gradients of x, scale and bias. bf16 within
+    a few bf16 roundings of the largest value (the chains round the BN output
+    and SiLU's gradient in bf16, at elements where fp32 orders may differ)."""
+    rng = np.random.default_rng(26)
+    c = 6
+    x32 = rand(rng, 3, 4, 5, c) * 2 + 1.5
+    r = rand(rng, 3, 4, 5, c)
+    variables = bn_variables(rng, c)
+    x = torch.from_numpy(x32).to(dtype)
+    scale, bias = (torch.from_numpy(variables["params"][k]) for k in ("scale", "bias"))
+    shift = torch.from_numpy(variables["batch_stats"]["mean"])
+
+    def chain(xt, st, bt):
+        y = plain_bn_train(xt, st, bt, shift).to(dtype)
+        return F.silu(y) if act else y
+
+    fused = bn_act_grads(x, scale, bias, torch.from_numpy(r),
+                         lambda xt, st, bt: batch_norm_train(xt, st, bt, shift, 1e-5, dtype, act=act)[0])
+    eager = bn_act_grads(x, scale, bias, torch.from_numpy(r), chain)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+
+    def jax_forward(xj, sj, bj):
+        v = {"params": {"scale": sj, "bias": bj}, "batch_stats": variables["batch_stats"]}
+        y, _ = JaxBatchNorm(c, dtype=jdtype).apply(v, xj, True, mutable=["batch_stats"])
+        return jax.nn.silu(y) if act else y
+
+    xj = jnp.asarray(x.float().numpy()).astype(jdtype)
+    sj, bj = jnp.asarray(variables["params"]["scale"]), jnp.asarray(variables["params"]["bias"])
+    grads = jax.grad(lambda *a: jnp.sum(jax_forward(*a).astype(jnp.float32) * r), argnums=(0, 1, 2))(xj, sj, bj)
+    expected = [np.asarray(jax_forward(xj, sj, bj), np.float32)] + [np.asarray(g, np.float32) for g in grads]
+    rel = 4 * BF16_RTOL if dtype == torch.bfloat16 else 1e-5
+    for name, got, ref, jref in zip(("y", "x", "scale", "bias"), fused, eager, expected):
+        bound = rel * float(ref.abs().max()) + 1e-6
+        assert (got - ref).abs().max().item() <= bound, f"{name} vs the eager chain"
+        assert np.abs(got.numpy() - jref).max() <= bound, f"{name} vs JAX"
+
+
+@pytest.mark.parametrize("act", [False, True])
+def test_bn_act_recompute_keeps_the_shift_and_the_statistics(act):
+    """A rematerialized rerun with SiLU gives the first forward's output bit
+    for bit and leaves the running statistics as the first forward moved them."""
+    rng = np.random.default_rng(27)
+    bn = BatchNorm(4, dtype=torch.bfloat16).train()
+    bn.mean.copy_(torch.from_numpy(rand(rng, 4)))
+    x = torch.from_numpy(rand(rng, 5, 7, 4) * 2 + 3).to(torch.bfloat16)
+    first = bn(x, act=act)
+    stats = (bn.mean.clone(), bn.var.clone())
+    shift = bn._shift
+    again = bn(x, recompute=True, act=act)
+    assert torch.equal(first, again) and bn._shift is shift
+    assert torch.equal(bn.mean, stats[0]) and torch.equal(bn.var, stats[1])
+    assert not torch.equal(stats[0], torch.zeros(4))
+
+
+@pytest.fixture
+def bn_group_of_one():
+    """A gloo group of this process alone: the mesh path's collectives run,
+    and a sum over one process changes nothing."""
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        yield mesh_lib.create_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_act_module_over_a_group_of_one_is_bitwise_the_module_without_a_mesh(bn_group_of_one, dtype):
+    """BatchNorm with SiLU, training: over a mesh the moments are all-reduced
+    between the partial sums and the finalize step and [Σg, Σg·x̂] before dx;
+    at one process the output, the gradients and the running statistics
+    equal the no-mesh arithmetic bit for bit."""
+    rng = np.random.default_rng(28)
+    x = torch.from_numpy(rand(rng, 4, 3, 6, 5, 16) * 3 + 2).to(dtype)
+    dy = torch.from_numpy(rand(rng, *x.shape)).to(dtype)
+    running_mean = torch.from_numpy(rand(rng, 16))
+    results = []
+    for mesh in (None, bn_group_of_one):
+        bn = BatchNorm(16, dtype=dtype).train()
+        bn.mean.copy_(running_mean)
+        xt = x.clone().requires_grad_(True)
+        with mesh_lib.active(mesh):
+            y = bn(xt, act=True)
+            y.backward(dy)
+        results.append([y, xt.grad, bn.scale.grad, bn.bias.grad, bn.var, bn.mean])
+    for name, without, over in zip(("y", "dx", "dscale", "dbias", "var", "mean"), results[0], results[1]):
+        assert torch.equal(without, over), name
+
+
+def test_bn_kernel_wrappers_refuse_empty_inputs():
+    c = torch.ones(3)
+    for call in (lambda x: bn_kernels.bn_act_eval(x, c, c, c, c, 1e-5, True),
+                 lambda x: bn_kernels.bn_stats(x, c, c, c), lambda x: bn_kernels.bn_moments(x, c)):
+        with pytest.raises(ValueError, match="at least one row"):
+            call(torch.ones(0, 3))
+        with pytest.raises(ValueError, match="at least one row"):
+            call(torch.ones(3))
+
+
+@pytest.mark.parametrize(
+    "rows, c, itemsize",
+    [(2_097_152, 64, 2), (2_097_152, 448, 2), (524_288, 1792, 2), (131_072, 1536, 2), (512, 4096, 2),
+     (512, 1024, 4), (120, 6, 2), (7, 3, 4), (1, 1, 2)],
+)
+def test_bn_launch_geometry_covers_every_row_and_channel_once(rows, c, itemsize):
+    """The row kernels' tiling: whole channel tiles of at most 32 vectors and
+    256 threads, slabs that cover the rows once, one wave of blocks where
+    there are rows enough; the core's shapes split over slabs, the cortex's
+    over channel tiles."""
+    sms = 132
+    for kind, per_sm in (("stats", 4), ("grad", 2)):
+        geo = bn_kernels.launch_geometry(rows, c, itemsize, sms, per_sm)
+        vectors = -(-c // (16 // itemsize))
+        assert 1 <= geo["tile_vecs"] <= 32 and geo["tile_vecs"] * geo["lanes"] <= 256
+        assert geo["tiles"] * geo["tile_vecs"] >= vectors > (geo["tiles"] - 1) * geo["tile_vecs"]
+        assert geo["slabs"] * geo["rows_per_slab"] >= rows > (geo["slabs"] - 1) * geo["rows_per_slab"]
+        blocks = geo["slabs"] * geo["tiles"]
+        assert blocks <= per_sm * sms + geo["tiles"] or geo["slabs"] == 1, kind
+        if rows >= 256 * per_sm * sms:
+            assert blocks >= per_sm * sms - geo["tiles"], kind
 
 
 # ------------------------------------------------------- drop-path, dropout
