@@ -13,7 +13,8 @@
 //   backward          read x and dy twice (sums, dx), write dx once;
 //   eval              read x, write y.
 // SiLU's exponential and division per element are the one cost that comes
-// near it (see silu below).
+// near it (see silu in bn_act.cuh, which dw_conv.cu shares for its eval BN
+// prologue).
 //
 // Layout: x viewed as (rows, C), channels last and contiguous. A thread owns
 // one 16-byte vector of channels (8 bf16 or 4 fp32) and keeps that vector's
@@ -48,10 +49,10 @@
 
 #include <cstdint>
 #include <initializer_list>
-#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bn_act.cuh"
 #include "dw_vec.cuh"
 
 namespace {
@@ -69,47 +70,6 @@ enum FinalizeKind : int {
   kFromMoments = 2,  // the statistics, from one slab of reduced moments
   kSums = 3,         // the sums themselves (the backward's [sum g, sum g*xhat])
 };
-
-// v rounded to T and back: the rounding of a bf16 intermediate; none in fp32.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return static_cast<float>(from_float<T>(v));
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// SiLU and its gradient in the order of PyTorch's silu and silu_backward. In
-// bf16 with the hardware's exponential and a fast division: the exact ones
-// cost as many instructions per element as the card has cycles for at full
-// bandwidth, and their fp32 differences (a few units in the last place)
-// vanish in the rounding to bf16 but at the rare element on a boundary. fp32
-// keeps the exact ones.
-template <typename T>
-__device__ __forceinline__ float sigmoid(float z) {
-  if constexpr (std::is_same_v<T, float>) {
-    return 1.0f / (1.0f + expf(-z));
-  } else {
-    return __frcp_rn(1.0f + __expf(-z));
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ float silu(float z) {
-  if constexpr (std::is_same_v<T, float>) {
-    return z / (1.0f + expf(-z));
-  } else {
-    return __fdividef(z, 1.0f + __expf(-z));
-  }
-}
-
-// dy * silu'(z).
-template <typename T>
-__device__ __forceinline__ float silu_grad(float dy, float z) {
-  const float s = sigmoid<T>(z);
-  return dy * s * (1.0f + z * (1.0f - s));
-}
 
 // The thread's place in its block: channel vector v of the tile, row lane
 // `lane` of `lanes`, and the first channel of its vector.
@@ -279,15 +239,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   if (!p.active) return;
   float a[N], b[N];
   if constexpr (EVAL) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      a[i] = b[i] = 0.0f;
-      if (i < p.valid) {
-        const float inv = rsqrtf(p1[p.ch + i] + eps) * p2[p.ch + i];
-        a[i] = inv;
-        b[i] = p3[p.ch + i] - p0[p.ch + i] * inv;
-      }
-    }
+    eval_channels(a, b, EvalBn{p0, p1, p2, p3, eps}, p.ch, p.valid);
   } else {
     load_channels(a, p0, p);
     load_channels(b, p1, p);
@@ -310,8 +262,11 @@ __global__ void __launch_bounds__(kThreads, 4)
         Vec16<T>::unpack(f, raw[u]);
 #pragma unroll
         for (int i = 0; i < N; ++i) {
-          f[i] = fmaf(f[i], a[i], b[i]);
-          if constexpr (ACT) f[i] = silu<T>(round_to<T>(f[i]));
+          if constexpr (ACT) {
+            f[i] = bn_silu<T>(f[i], a[i], b[i]);
+          } else {
+            f[i] = fmaf(f[i], a[i], b[i]);
+          }
         }
         store_vec<T, VEC>(y + rr * c + p.ch, f, p.valid);
       }

@@ -93,6 +93,28 @@
 //  16 frames: 0.94 GB in bf16, >= 0.28 ms at 3.35 TB/s), with k
 //  multiply-adds per output element.
 //
+// The eval BN prologue (dw_spatial_fwd_bn, dw_temporal_fwd_bn): in the
+// served forward, an eval batch norm with its SiLU (pw_bn before the spatial
+// conv, spatial_bn before the temporal one) runs inside the conv that reads
+// its output, which is then never written to device memory. It replaces no
+// TPU kernel: XLA fuses the JAX package's BN and SiLU into their neighbours.
+// Both kernels take it as a compile-time parameter BN; without it they are
+// the plain convs above. With it, every x element becomes
+// round(silu(round(x*a + b))) once, as it is staged, by bn_act.cu's own
+// arithmetic (bn_act.cuh: a and b derived per channel from the running
+// statistics as bn_act_apply_kernel's eval branch derives them, bn_silu), so
+// the output is bitwise dw_*_fwd(bn_act_eval(x)). The padding stays zero
+// after the prologue (silu(b) != 0 in general). The prologue adds no device
+// traffic but the four per-channel vectors: its cost is an exponential and a
+// reciprocal per x element on the special function unit, where the eval BN
+// pass it replaces read and wrote the tensor once more. dw_spatial_fwd_kernel
+// turns a band's new rows in place in its ring, each thread the cells it
+// copied itself, right after its copies complete, so no barrier is added per
+// band; the band's cells are dealt to the lanes evenly for that (deal_cells);
+// a and b of the block's channel tile wait in shared memory after the
+// weights. dw_temporal_fwd_walk turns each frame as it enters its register
+// window, with the column's a and b in registers.
+//
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing and returns cudaGetLastError(), or cudaErrorInvalidValue
 // for a kernel size, stride or tiling the kernels are not compiled for.
@@ -101,6 +123,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bn_act.cuh"
 #include "dw_vec.cuh"
 
 namespace {
@@ -136,15 +159,17 @@ struct FwdGeometry {
 // A unit is W adjacent outputs of one row; a band has band * col_tile / W
 // units, taken by the lanes in turn. Shared memory: the ring
 // [g.ring][g.tile_cols][8] of 16-byte vectors, then the weights in fp32,
-// [K*K][kVec/4][8] float4s. The frame sizes come from the geometry (constant
+// [K*K][kVec/4][8] float4s, and with BN the tile's a and b, [2][8][kVec]
+// floats. The frame sizes come from the geometry (constant
 // memory), so that few block-level values hold registers through the tap
 // loops, where ptxas would spill them. Registers are capped for 3 blocks an
 // SM at k = 3 (80 a thread), for 4 with 2 outputs a thread at stride 1 (the
 // small frames, whose blocks' copies hide behind each other's arithmetic),
 // for 2 at k = 5.
-template <typename T, int K, int S, int W>
+template <typename T, int K, int S, int W, bool BN>
 __global__ void __launch_bounds__(kFwdThreads, K == 3 ? (S == 1 && W == 2 ? 4 : 3) : 2)
-dw_spatial_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, const FwdGeometry g) {
+dw_spatial_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, const FwdGeometry g,
+                      const EvalBn bn) {
   using V = Vec16<T>;
   constexpr int kVec = V::kN;
   constexpr int kP = K / 2;
@@ -153,6 +178,8 @@ dw_spatial_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __res
   extern __shared__ uint4 smem[];
   uint4* ring = smem;
   float4* wsm = reinterpret_cast<float4*>(smem + g.ring * g.tile_cols * kFwdTileVecs);
+  // BN: the tile's a, then its b, [8][kVec] floats each.
+  [[maybe_unused]] float* affine = reinterpret_cast<float*>(wsm + K * K * kQuads * kFwdTileVecs);
 
   const int v = threadIdx.x % kFwdTileVecs;
   const int lane = threadIdx.x / kFwdTileVecs;
@@ -167,15 +194,27 @@ dw_spatial_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __res
   // Whether the block has a band i: a frame left to walk, or rows left in its group.
   auto has_band = [&](int i) { return walks ? i < g.frames && n0 + i < g.n : row0 + i * g.band < row_end; };
 
-  // Band i's x rows that the ring does not hold yet: all of them for the first
-  // band of a frame, the S*band new rows below the last band's otherwise.
+  // Band i's x rows that the ring does not hold yet, [new_rows(i), last_row(i)]:
+  // all of them for the first band of a frame, the S*band new rows below the
+  // last band's otherwise.
+  auto new_rows = [&](int i) {
+    const int s = walks ? 0 : row0 + i * g.band;
+    return (walks || i == 0) ? s * S - kP : (s - 1) * S + K - kP;
+  };
+  auto last_row = [&](int i) { return ((walks ? 0 : row0 + i * g.band) + g.band - 1) * S + K - 1 - kP; };
+  // With BN the cells of all the band's rows are dealt to the lanes in turn
+  // (stage_x_cells), so that the prologue, which each thread runs on the
+  // cells it copied, is spread evenly.
   auto stage = [&](int i) {
     if (!has_band(i)) return;
-    const int s = walks ? 0 : row0 + i * g.band;
-    const int r_begin = (walks || i == 0) ? s * S - kP : (s - 1) * S + K - kP;
-    stage_x_rows<T, kP, kFwdTileVecs, kFwdLanes>(ring, x + static_cast<int64_t>(n0 + (walks ? i : 0)) * g.frame_in,
-                                                 g, r_begin, (s + g.band - 1) * S + K - 1 - kP, i * g.band_rows,
-                                                 col0 * S - kP, ch);
+    const T* xn = x + static_cast<int64_t>(n0 + (walks ? i : 0)) * g.frame_in;
+    if constexpr (BN) {
+      stage_x_cells<T, kP, kFwdTileVecs, kFwdLanes>(ring, xn, g, new_rows(i), last_row(i), i * g.band_rows,
+                                                    col0 * S - kP, ch);
+    } else {
+      stage_x_rows<T, kP, kFwdTileVecs, kFwdLanes>(ring, xn, g, new_rows(i), last_row(i), i * g.band_rows,
+                                                   col0 * S - kP, ch);
+    }
   };
   stage(0);
   cp_async_commit();
@@ -195,6 +234,16 @@ dw_spatial_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __res
       wsm[(t * kQuads + q) * kFwdTileVecs + wv] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
     }
   }
+  if constexpr (BN) {
+    for (int e = threadIdx.x; e < kFwdTileVecs * kVec; e += kFwdThreads) {
+      const int ech = cv0 * kVec + e;
+      float a = 0.0f, b = 0.0f;
+      if (ech < g.c) eval_affine(bn.mean[ech], bn.var[ech], bn.scale[ech], bn.bias[ech], bn.eps, a, b);
+      affine[e] = a;
+      affine[kFwdTileVecs * kVec + e] = b;
+    }
+    __syncthreads();  // a and b, before the first band's prologue
+  }
 
   for (int i = 0; has_band(i); ++i) {
     // One group per band, empty past the last, so that waiting for all but
@@ -202,6 +251,22 @@ dw_spatial_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __res
     stage(i + 1);
     cp_async_commit();
     cp_async_wait_one();
+    if constexpr (BN) {
+      // This thread's copies of band i have landed: the prologue on them, in
+      // place, once per in-frame cell (it reads only what it wrote itself);
+      // the zero padding stays 0.
+      float a[kVec], b[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        a[e] = affine[v * kVec + e];
+        b[e] = affine[(kFwdTileVecs + v) * kVec + e];
+      }
+      const int xcol0 = col0 * S - kP;
+      deal_cells<kP, kFwdLanes>(g, lane, new_rows(i), last_row(i), i * g.band_rows, [&](int r, int cc, int slot) {
+        uint4* cell = ring + (slot * g.tile_cols + cc) * kFwdTileVecs + v;
+        if (x_inside(g, r, xcol0 + cc, ch)) *cell = bn_silu_vec<T>(*cell, a, b);
+      });
+    }
     __syncthreads();
 
     const int s = walks ? 0 : row0 + i * g.band;
@@ -285,17 +350,26 @@ struct TemporalGeometry {
   int vec;      // 1: 16-byte loads and stores; 0: element by element
 };
 
-template <typename T, int K, int F, bool VEC>
+template <typename T, int K, int F, bool VEC, bool BN>
 __device__ __forceinline__ void temporal_fwd_column(const T* __restrict__ xc, const T* __restrict__ wc,
-                                                    T* __restrict__ yc, const TemporalGeometry& g, int valid) {
+                                                    T* __restrict__ yc, const TemporalGeometry& g, int valid,
+                                                    const EvalBn& bn, int ch) {
   using V = Vec16<T>;
   constexpr int kVec = V::kN;
   constexpr int kP = K / 2;
   float wf[K][kVec];
 #pragma unroll
   for (int dt = 0; dt < K; ++dt) V::unpack(wf[dt], load_vec<T, VEC>(wc + dt * g.c, valid));
+  [[maybe_unused]] float a[kVec], b[kVec];
+  if constexpr (BN) eval_channels(a, b, bn, ch, valid);
   float win[K - 1][kVec];  // frames t-P .. t+P-1 of output frame t
   start_window<T, K, VEC>(win, xc, g.t_len, g.frame, valid);
+  if constexpr (BN) {
+#pragma unroll
+    for (int j = 0; j < kP; ++j) {  // frames past the column stay 0
+      if (j < g.t_len) V::unpack(win[kP + j], bn_silu_vec<T>(V::pack(win[kP + j]), a, b));
+    }
+  }
   for (int t0 = 0; t0 < g.t_len; t0 += F) {
     uint4 raw[F];  // frames t0+P .. t0+P+F-1, loaded together
 #pragma unroll
@@ -303,6 +377,9 @@ __device__ __forceinline__ void temporal_fwd_column(const T* __restrict__ xc, co
 #pragma unroll
     for (int o = 0; o < F; ++o) {
       if (t0 + o >= g.t_len) break;
+      if constexpr (BN) {
+        if (t0 + o + kP < g.t_len) raw[o] = bn_silu_vec<T>(raw[o], a, b);
+      }
       float xn[kVec];
       V::unpack(xn, raw[o]);
       float acc[kVec];
@@ -323,9 +400,10 @@ __device__ __forceinline__ void temporal_fwd_column(const T* __restrict__ xc, co
 
 // Thread id = (b * hw + pixel) * cvecs + channel vector. Registers are capped
 // for 2 blocks an SM: 16 warps, each with F 16-byte loads in flight.
-template <typename T, int K, int F>
+template <typename T, int K, int F, bool BN>
 __global__ void __launch_bounds__(kTemporalThreads, 2)
-dw_temporal_fwd_walk(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, const TemporalGeometry g) {
+dw_temporal_fwd_walk(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, const TemporalGeometry g,
+                     const EvalBn bn) {
   constexpr int kVec = Vec16<T>::kN;
   const int id = blockIdx.x * kTemporalThreads + threadIdx.x;
   if (id >= g.threads) return;
@@ -336,38 +414,39 @@ dw_temporal_fwd_walk(const T* __restrict__ x, const T* __restrict__ w, T* __rest
                        static_cast<int64_t>(column - b * g.hw) * g.c + ch;
   const int valid = min(kVec, g.c - ch);
   if (g.vec) {
-    temporal_fwd_column<T, K, F, true>(x + base, w + ch, y + base, g, valid);
+    temporal_fwd_column<T, K, F, true, BN>(x + base, w + ch, y + base, g, valid, bn, ch);
   } else {
-    temporal_fwd_column<T, K, F, false>(x + base, w + ch, y + base, g, valid);
+    temporal_fwd_column<T, K, F, false, BN>(x + base, w + ch, y + base, g, valid, bn, ch);
   }
 }
 
-template <typename T, int K, int S, int W>
-int launch_spatial_fwd_kernel(const T* x, const T* w, T* y, const FwdGeometry& g, dim3 grid, int smem,
-                              cudaStream_t stream) {
-  auto* kernel = dw_spatial_fwd_kernel<T, K, S, W>;
+template <typename T, int K, int S, int W, bool BN>
+int launch_spatial_fwd_kernel(const T* x, const T* w, T* y, const FwdGeometry& g, const EvalBn& bn, dim3 grid,
+                              int smem, cudaStream_t stream) {
+  auto* kernel = dw_spatial_fwd_kernel<T, K, S, W, BN>;
   if (smem > 48 * 1024) {
     const cudaError_t status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (status != cudaSuccess) return static_cast<int>(status);
   }
-  kernel<<<grid, kFwdThreads, smem, stream>>>(x, w, y, g);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(x, w, y, g, bn);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int K>
-int dispatch_spatial_fwd(const T* x, const T* w, T* y, const FwdGeometry& g, int stride, int cols, dim3 grid,
-                         int smem, cudaStream_t stream) {
-  if (stride == 2) return launch_spatial_fwd_kernel<T, K, 2, 2>(x, w, y, g, grid, smem, stream);
-  return cols == 4 ? launch_spatial_fwd_kernel<T, K, 1, 4>(x, w, y, g, grid, smem, stream)
-                   : launch_spatial_fwd_kernel<T, K, 1, 2>(x, w, y, g, grid, smem, stream);
+template <typename T, int K, bool BN>
+int dispatch_spatial_fwd(const T* x, const T* w, T* y, const FwdGeometry& g, const EvalBn& bn, int stride, int cols,
+                         dim3 grid, int smem, cudaStream_t stream) {
+  if (stride == 2) return launch_spatial_fwd_kernel<T, K, 2, 2, BN>(x, w, y, g, bn, grid, smem, stream);
+  return cols == 4 ? launch_spatial_fwd_kernel<T, K, 1, 4, BN>(x, w, y, g, bn, grid, smem, stream)
+                   : launch_spatial_fwd_kernel<T, K, 1, 2, BN>(x, w, y, g, bn, grid, smem, stream);
 }
 
 // band, col_tile, cols (W), frames, bands_per_block and smem_bytes come from
-// the wrapper; the rest of the geometry follows from them here.
-template <typename T>
-int launch_spatial(const void* x, const void* w, void* y, int64_t n, int64_t h, int64_t wd, int64_t c, int64_t k,
-                   int64_t stride, int64_t band, int64_t col_tile, int64_t cols, int64_t frames,
-                   int64_t bands_per_block, int64_t smem_bytes, void* stream) {
+// the wrapper; the rest of the geometry follows from them here. BN: bn's
+// prologue on x (dw_spatial_fwd_bn).
+template <typename T, bool BN>
+int launch_spatial(const void* x, const void* w, void* y, const EvalBn& bn, int64_t n, int64_t h, int64_t wd,
+                   int64_t c, int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t cols,
+                   int64_t frames, int64_t bands_per_block, int64_t smem_bytes, void* stream) {
   constexpr int kVec = Vec16<T>::kN;
   const bool cols_ok = stride == 1 ? (cols == 2 || cols == 4) : (stride == 2 && cols == 2);
   if ((k != 3 && k != 5) || !cols_ok || band < 1 || col_tile < 1 || col_tile % cols != 0 || frames < 1 ||
@@ -400,7 +479,9 @@ int launch_spatial(const void* x, const void* w, void* y, int64_t n, int64_t h, 
   g.tile_cols = static_cast<int>(stride * (col_tile - 1) + k);
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   g.vec = c % kVec == 0 && aligned(x) && aligned(w) && aligned(y);
-  if (smem_bytes != static_cast<int64_t>(g.ring) * g.tile_cols * kFwdTileVecs * 16 + k * k * kFwdTileVecs * kVec * 4) {
+  // The ring, the weights and, with BN, the tile's a and b.
+  const int64_t fixed_floats = (k * k + (BN ? 2 : 0)) * kFwdTileVecs * kVec;
+  if (smem_bytes != static_cast<int64_t>(g.ring) * g.tile_cols * kFwdTileVecs * 16 + fixed_floats * 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0 || h == 0 || wd == 0 || c == 0) return static_cast<int>(cudaGetLastError());
@@ -414,14 +495,15 @@ int launch_spatial(const void* x, const void* w, void* y, int64_t n, int64_t h, 
   const auto s = static_cast<cudaStream_t>(stream);
   const int smem = static_cast<int>(smem_bytes);
   const int st = static_cast<int>(stride), cl = static_cast<int>(cols);
-  return k == 3 ? dispatch_spatial_fwd<T, 3>(xp, wp, yp, g, st, cl, grid, smem, s)
-                : dispatch_spatial_fwd<T, 5>(xp, wp, yp, g, st, cl, grid, smem, s);
+  return k == 3 ? dispatch_spatial_fwd<T, 3, BN>(xp, wp, yp, g, bn, st, cl, grid, smem, s)
+                : dispatch_spatial_fwd<T, 5, BN>(xp, wp, yp, g, bn, st, cl, grid, smem, s);
 }
 
 // frame_tile comes from the wrapper; the rest of the geometry follows here.
-template <typename T>
-int launch_temporal(const void* x, const void* w, void* y, int64_t batch, int64_t t_len, int64_t hw, int64_t c,
-                    int64_t k, int64_t frame_tile, void* stream) {
+// BN: bn's prologue on x (dw_temporal_fwd_bn).
+template <typename T, bool BN>
+int launch_temporal(const void* x, const void* w, void* y, const EvalBn& bn, int64_t batch, int64_t t_len,
+                    int64_t hw, int64_t c, int64_t k, int64_t frame_tile, void* stream) {
   constexpr int kVec = Vec16<T>::kN;
   if ((k != 3 && k != 5) || frame_tile != kTemporalFrameTile) return static_cast<int>(cudaErrorInvalidValue);
   TemporalGeometry g;
@@ -440,11 +522,17 @@ int launch_temporal(const void* x, const void* w, void* y, int64_t batch, int64_
   auto* yp = static_cast<T*>(y);
   const auto s = static_cast<cudaStream_t>(stream);
   if (k == 3) {
-    dw_temporal_fwd_walk<T, 3, kTemporalFrameTile><<<grid, kTemporalThreads, 0, s>>>(xp, wp, yp, g);
+    dw_temporal_fwd_walk<T, 3, kTemporalFrameTile, BN><<<grid, kTemporalThreads, 0, s>>>(xp, wp, yp, g, bn);
   } else {
-    dw_temporal_fwd_walk<T, 5, kTemporalFrameTile><<<grid, kTemporalThreads, 0, s>>>(xp, wp, yp, g);
+    dw_temporal_fwd_walk<T, 5, kTemporalFrameTile, BN><<<grid, kTemporalThreads, 0, s>>>(xp, wp, yp, g, bn);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The eval BN of the prologue entry points: fp32 (C,) vectors and eps.
+EvalBn eval_bn(const void* mean, const void* var, const void* scale, const void* bias, double eps) {
+  return EvalBn{static_cast<const float*>(mean), static_cast<const float*>(var), static_cast<const float*>(scale),
+                static_cast<const float*>(bias), static_cast<float>(eps)};
 }
 
 }  // namespace
@@ -454,25 +542,55 @@ extern "C" {
 int dw_spatial_fwd_f32(const void* x, const void* w, void* y, int64_t n, int64_t h, int64_t wd, int64_t c,
                        int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t cols, int64_t frames,
                        int64_t bands_per_block, int64_t smem_bytes, void* stream) {
-  return launch_spatial<float>(x, w, y, n, h, wd, c, k, stride, band, col_tile, cols, frames, bands_per_block,
-                               smem_bytes, stream);
+  return launch_spatial<float, false>(x, w, y, EvalBn{}, n, h, wd, c, k, stride, band, col_tile, cols, frames,
+                                      bands_per_block, smem_bytes, stream);
 }
 
 int dw_spatial_fwd_bf16(const void* x, const void* w, void* y, int64_t n, int64_t h, int64_t wd, int64_t c,
                         int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t cols, int64_t frames,
                         int64_t bands_per_block, int64_t smem_bytes, void* stream) {
-  return launch_spatial<__nv_bfloat16>(x, w, y, n, h, wd, c, k, stride, band, col_tile, cols, frames,
-                                       bands_per_block, smem_bytes, stream);
+  return launch_spatial<__nv_bfloat16, false>(x, w, y, EvalBn{}, n, h, wd, c, k, stride, band, col_tile, cols,
+                                              frames, bands_per_block, smem_bytes, stream);
+}
+
+int dw_spatial_fwd_bn_f32(const void* x, const void* w, void* y, const void* mean, const void* var,
+                          const void* scale, const void* bias, double eps, int64_t n, int64_t h, int64_t wd,
+                          int64_t c, int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t cols,
+                          int64_t frames, int64_t bands_per_block, int64_t smem_bytes, void* stream) {
+  return launch_spatial<float, true>(x, w, y, eval_bn(mean, var, scale, bias, eps), n, h, wd, c, k, stride, band,
+                                     col_tile, cols, frames, bands_per_block, smem_bytes, stream);
+}
+
+int dw_spatial_fwd_bn_bf16(const void* x, const void* w, void* y, const void* mean, const void* var,
+                           const void* scale, const void* bias, double eps, int64_t n, int64_t h, int64_t wd,
+                           int64_t c, int64_t k, int64_t stride, int64_t band, int64_t col_tile, int64_t cols,
+                           int64_t frames, int64_t bands_per_block, int64_t smem_bytes, void* stream) {
+  return launch_spatial<__nv_bfloat16, true>(x, w, y, eval_bn(mean, var, scale, bias, eps), n, h, wd, c, k, stride,
+                                             band, col_tile, cols, frames, bands_per_block, smem_bytes, stream);
 }
 
 int dw_temporal_fwd_f32(const void* x, const void* w, void* y, int64_t batch, int64_t t_len, int64_t hw,
                         int64_t c, int64_t k, int64_t frame_tile, void* stream) {
-  return launch_temporal<float>(x, w, y, batch, t_len, hw, c, k, frame_tile, stream);
+  return launch_temporal<float, false>(x, w, y, EvalBn{}, batch, t_len, hw, c, k, frame_tile, stream);
 }
 
 int dw_temporal_fwd_bf16(const void* x, const void* w, void* y, int64_t batch, int64_t t_len, int64_t hw,
                          int64_t c, int64_t k, int64_t frame_tile, void* stream) {
-  return launch_temporal<__nv_bfloat16>(x, w, y, batch, t_len, hw, c, k, frame_tile, stream);
+  return launch_temporal<__nv_bfloat16, false>(x, w, y, EvalBn{}, batch, t_len, hw, c, k, frame_tile, stream);
+}
+
+int dw_temporal_fwd_bn_f32(const void* x, const void* w, void* y, const void* mean, const void* var,
+                           const void* scale, const void* bias, double eps, int64_t batch, int64_t t_len,
+                           int64_t hw, int64_t c, int64_t k, int64_t frame_tile, void* stream) {
+  return launch_temporal<float, true>(x, w, y, eval_bn(mean, var, scale, bias, eps), batch, t_len, hw, c, k,
+                                      frame_tile, stream);
+}
+
+int dw_temporal_fwd_bn_bf16(const void* x, const void* w, void* y, const void* mean, const void* var,
+                            const void* scale, const void* bias, double eps, int64_t batch, int64_t t_len,
+                            int64_t hw, int64_t c, int64_t k, int64_t frame_tile, void* stream) {
+  return launch_temporal<__nv_bfloat16, true>(x, w, y, eval_bn(mean, var, scale, bias, eps), batch, t_len, hw, c,
+                                              k, frame_tile, stream);
 }
 
 }  // extern "C"

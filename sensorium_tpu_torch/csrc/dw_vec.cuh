@@ -147,15 +147,12 @@ __device__ __forceinline__ bool x_inside(const Geo& g, int r, int col, int ch) {
   return ch < g.c && r >= 0 && r < g.h && col >= 0 && col < g.wd;
 }
 
-// stage_x_rows with the (row, column) cells of all rows dealt to the lanes in
-// turn, so that no lane idles where a ring row is narrower than the lanes (the
-// small frames). Each lane steps its row, column and slot on without a
-// division.
-template <typename T, int P, int kVecs, int kLanes, typename Geo>
-__device__ __forceinline__ void stage_x_cells(uint4* __restrict__ ring, const T* __restrict__ xn, const Geo& g,
-                                              int r_begin, int r_end, int base, int xcol0, int ch) {
-  const int v = threadIdx.x % kVecs;
-  const int lane = threadIdx.x / kVecs;
+// The (row, column) cells of x rows [r_begin, r_end], ring columns 0 ..
+// g.tile_cols - 1, dealt to the lanes in turn, row-major: fn(r, cc, slot) for
+// each of this lane's, with slot the row's ring slot ((base + r + P) %
+// g.ring). Each lane steps its row, column and slot on without a division.
+template <int P, int kLanes, typename Geo, typename Fn>
+__device__ __forceinline__ void deal_cells(const Geo& g, int lane, int r_begin, int r_end, int base, Fn&& fn) {
   const int step_r = kLanes / g.tile_cols;
   const int step_c = kLanes - step_r * g.tile_cols;
   int rr = lane / g.tile_cols;
@@ -164,15 +161,7 @@ __device__ __forceinline__ void stage_x_cells(uint4* __restrict__ ring, const T*
   slot -= slot >= g.ring ? g.ring : 0;
 #pragma unroll 1
   for (int r = r_begin + rr; r <= r_end;) {
-    const int col = xcol0 + cc;
-    const bool inside = x_inside(g, r, col, ch);
-    const T* src = inside ? xn + (r * g.wd + col) * g.c + ch : xn;
-    uint4* dst = ring + (slot * g.tile_cols + cc) * kVecs + v;
-    if (g.vec) {
-      cp_async16(dst, src, inside ? 16 : 0);
-    } else {
-      *dst = inside ? Vec16<T>::load(src, g.c - ch) : make_uint4(0u, 0u, 0u, 0u);
-    }
+    fn(r, cc, slot);
     r += step_r;
     slot += step_r;
     cc += step_c;
@@ -183,6 +172,27 @@ __device__ __forceinline__ void stage_x_cells(uint4* __restrict__ ring, const T*
     }
     while (slot >= g.ring) slot -= g.ring;
   }
+}
+
+// stage_x_rows with the cells of all rows dealt to the lanes in turn
+// (deal_cells), so that no lane idles where a ring row is narrower than the
+// lanes (the small frames) and none takes two cells of a row where the others
+// take one.
+template <typename T, int P, int kVecs, int kLanes, typename Geo>
+__device__ __forceinline__ void stage_x_cells(uint4* __restrict__ ring, const T* __restrict__ xn, const Geo& g,
+                                              int r_begin, int r_end, int base, int xcol0, int ch) {
+  const int v = threadIdx.x % kVecs;
+  deal_cells<P, kLanes>(g, threadIdx.x / kVecs, r_begin, r_end, base, [&](int r, int cc, int slot) {
+    const int col = xcol0 + cc;
+    const bool inside = x_inside(g, r, col, ch);
+    const T* src = inside ? xn + (r * g.wd + col) * g.c + ch : xn;
+    uint4* dst = ring + (slot * g.tile_cols + cc) * kVecs + v;
+    if (g.vec) {
+      cp_async16(dst, src, inside ? 16 : 0);
+    } else {
+      *dst = inside ? Vec16<T>::load(src, g.c - ch) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  });
 }
 
 namespace {

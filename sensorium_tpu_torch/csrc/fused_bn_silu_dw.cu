@@ -106,14 +106,16 @@ struct FusedGeometry {
   int vec;              // 1: 16-byte copies and stores; 0: element by element
 };
 
-// silu(x * a + b) in fp32; bf16 data: v * 1 / (1 + 2^(-v * log2(e))), where
-// a subnormal 2^t flushed to 0 gives 1 + 0, as 1 + 2^t rounds to 1 anyway.
-template <typename T> __device__ __forceinline__ float bn_silu(float x, float a, float b);
-template <> __device__ __forceinline__ float bn_silu<float>(float x, float a, float b) {
+// silu(x * a + b) in fp32, never rounded to T (bn_act.cuh's bn_silu rounds the
+// BN output to T first, as the model's eval BN does); bf16 data: v * 1 / (1 +
+// 2^(-v * log2(e))), where a subnormal 2^t flushed to 0 gives 1 + 0, as 1 + 2^t
+// rounds to 1 anyway.
+template <typename T> __device__ __forceinline__ float bn_silu_unrounded(float x, float a, float b);
+template <> __device__ __forceinline__ float bn_silu_unrounded<float>(float x, float a, float b) {
   const float v = fmaf(x, a, b);
   return v / (1.0f + expf(-v));
 }
-template <> __device__ __forceinline__ float bn_silu<__nv_bfloat16>(float x, float a, float b) {
+template <> __device__ __forceinline__ float bn_silu_unrounded<__nv_bfloat16>(float x, float a, float b) {
   const float v = fmaf(x, a, b);
   float e, r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v * -1.4426950408889634f));
@@ -250,7 +252,7 @@ fused_bn_silu_dw_kernel(const T* __restrict__ x, const float* __restrict__ scale
         if (x_inside(g, r, col, ch)) {
           V::unpack(f, landing[index * kTileVecs + v]);
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) f[e] = bn_silu<T>(f[e], a[e], b[e]);
+          for (int e = 0; e < kVec; ++e) f[e] = bn_silu_unrounded<T>(f[e], a[e], b[e]);
         } else {
 #pragma unroll
           for (int e = 0; e < kVec; ++e) f[e] = 0.0f;

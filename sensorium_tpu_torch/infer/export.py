@@ -4,9 +4,11 @@ Counterpart of ``sensorium_tpu/infer/export.py``. The eval forward, or the
 whole sliding-window trial program, is traced once with ``torch.export``,
 with the eval (EMA) weights inside it, and saved as a ``.pt2`` artifact.
 The depthwise convs appear in the graph as the custom ops
-``sensorium::dw_spatial_fwd`` and ``sensorium::dw_temporal_fwd``
-(``ops/dw_kernels.py``), each BN with its SiLU as ``sensorium::bn_act_eval``
-(``ops/bn_kernels.py``).
+``sensorium::dw_spatial_fwd_bn`` and ``sensorium::dw_temporal_fwd_bn``
+(``ops/dw_kernels.py``), which carry each block's ``pw_bn`` and
+``spatial_bn`` as their prologue, every other BN with its SiLU as
+``sensorium::bn_act_eval`` (``ops/bn_kernels.py``); importing this module
+registers them all for a loader.
 
 Properties of the artifact:
 

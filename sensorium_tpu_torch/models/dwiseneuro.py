@@ -20,6 +20,11 @@ Structure:
   cortex: 3x grouped-1x1 ShuffleLayer
   stacked per-mouse readouts -> Softplus(beta)
 
+Eval mode normalizes with the running statistics; there each block's
+``pw_bn`` and ``spatial_bn`` run inside the depthwise convs that read them
+(``ops/conv.py`` ``depthwise_conv_*_bn``), bitwise the chain, where the
+depthwise route allows it.
+
 Training mode (``model.train()``) uses BN batch statistics and draws its
 masks from the ``generator`` passed to ``forward``: drop-path on each block's
 residual branch at ``drop_path_rate * i / num_blocks`` and on each cortex
@@ -61,8 +66,11 @@ from torch.utils.checkpoint import checkpoint
 
 from sensorium_tpu_torch.ops.conv import (
     depthwise_conv_spatial,
+    depthwise_conv_spatial_bn,
     depthwise_conv_temporal,
+    depthwise_conv_temporal_bn,
     einsum_f32,
+    eval_bn_runs_in_dw,
     grouped_pointwise,
     pointwise,
 )
@@ -213,11 +221,20 @@ class InvertedResidual3d(nn.Module):
                 recompute: bool = False) -> torch.Tensor:
         """``drop_mask``: the (B, 1, 1, 1, 1) drop-path mask of the residual
         branch, or None; ``recompute``: this is the backward pass's rerun of
-        the last forward (see ``BatchNorm``)."""
+        the last forward (see ``BatchNorm``). In eval, ``pw_bn`` and
+        ``spatial_bn`` run inside the depthwise convs that read them, where
+        the route allows (``ops/conv.py``): the same bits, and neither BN's
+        output is written."""
         shortcut = self.shortcut(x, recompute)
-        x = self.pw_bn(pointwise(x, self.pw_kernel.to(self.dtype)), recompute)
-        x = self.spatial_bn(depthwise_conv_spatial(x, self.spatial_dw_kernel, self.spatial_stride), recompute)
-        x = self.temporal_bn(depthwise_conv_temporal(x, self.temporal_dw_kernel), recompute)
+        x = pointwise(x, self.pw_kernel.to(self.dtype))
+        if self.training or not eval_bn_runs_in_dw(self.spatial_dw_kernel, self.temporal_dw_kernel):
+            x = self.spatial_bn(depthwise_conv_spatial(self.pw_bn(x, recompute), self.spatial_dw_kernel,
+                                                       self.spatial_stride), recompute)
+            x = depthwise_conv_temporal(x, self.temporal_dw_kernel)
+        else:
+            x = depthwise_conv_spatial_bn(x, self.pw_bn.bn, self.spatial_dw_kernel, self.spatial_stride)
+            x = depthwise_conv_temporal_bn(x, self.spatial_bn.bn, self.temporal_dw_kernel)
+        x = self.temporal_bn(x, recompute)
         x = self.se(x)
         x = self.pwl_bn(pointwise(x, self.pwl_kernel.to(self.dtype)), recompute)
         if drop_mask is not None:

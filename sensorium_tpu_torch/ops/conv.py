@@ -10,7 +10,11 @@ depthwise (k,1,1) pieces:
   hand-written CUDA kernels forward and backward (their plain versions for
   CPU tensors). ``SENSORIUM_DW_IMPL=cudnn`` sends them to PyTorch's grouped
   ``conv3d`` instead, forward and backward (``_dw_implementation``), which
-  is how ``tools/bench.py --ab`` times a whole step both ways.
+  is how ``tools/bench.py --ab`` times a whole step both ways;
+* in eval, a BN with its SiLU whose only reader is a depthwise conv runs
+  inside that conv's kernel (``depthwise_conv_spatial_bn``,
+  ``depthwise_conv_temporal_bn``), bitwise the chain of the two, where
+  ``eval_bn_runs_in_dw`` says the kernels' route takes it.
 
 All tensors are channels-last: 3-D data is (B, T, H, W, C), 1-D data is
 (B, T, C).
@@ -27,7 +31,13 @@ import os
 import torch
 import torch.nn.functional as F
 
-from sensorium_tpu_torch.ops.dw_kernels import dw_spatial, dw_temporal
+from sensorium_tpu_torch.ops.dw_kernels import (
+    COMPILED_KS,
+    dw_spatial,
+    dw_spatial_fwd_bn,
+    dw_temporal,
+    dw_temporal_fwd_bn,
+)
 
 DW_IMPLEMENTATIONS = ("cuda", "cudnn")
 
@@ -134,3 +144,23 @@ def depthwise_conv_temporal(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tens
         weight = kernel.t().reshape(c, 1, k, 1, 1)
         return _grouped_conv3d(x, weight, (1, 1, 1), (k // 2, 0, 0))
     return dw_temporal(x, kernel)
+
+
+def eval_bn_runs_in_dw(*kernels: torch.Tensor) -> bool:
+    """Whether an eval BN+SiLU runs inside the depthwise convs of these
+    ``kernels``: on the kernels' route, for sizes they are compiled for. The
+    ``cudnn`` route has no hand-written conv to run it in, and keeps the chain."""
+    return _dw_implementation() == "cuda" and all(kernel.shape[0] in COMPILED_KS for kernel in kernels)
+
+
+def depthwise_conv_spatial_bn(x: torch.Tensor, bn, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """``depthwise_conv_spatial`` of the eval ``BatchNorm`` ``bn`` with SiLU
+    (``ops/norm.py``) of x, bitwise, without writing BN's output
+    (``dw_kernels.dw_spatial_fwd_bn``). Forward only, as the eval BN is."""
+    return dw_spatial_fwd_bn(x, kernel.to(x.dtype), bn.mean, bn.var, bn.scale, bn.bias, bn.eps, stride)
+
+
+def depthwise_conv_temporal_bn(x: torch.Tensor, bn, kernel: torch.Tensor) -> torch.Tensor:
+    """``depthwise_conv_temporal`` of the eval ``BatchNorm`` ``bn`` with SiLU
+    of x, bitwise, without writing BN's output (``dw_kernels.dw_temporal_fwd_bn``)."""
+    return dw_temporal_fwd_bn(x, kernel.to(x.dtype), bn.mean, bn.var, bn.scale, bn.bias, bn.eps)

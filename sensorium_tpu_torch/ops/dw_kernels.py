@@ -10,6 +10,13 @@ Counterpart of ``sensorium_tpu/ops/pallas_dw.py`` and
   OH = (H + 2 * (k // 2) - k) // stride + 1;
 * ``dw_temporal_fwd(x, w)``: x (B, T, H, W, C), w (k, C) with k odd, "same"
   padding over T;
+* ``dw_spatial_fwd_bn(x, w, mean, var, scale, bias, eps, stride)`` and
+  ``dw_temporal_fwd_bn(x, w, mean, var, scale, bias, eps)``: the same convs of
+  an eval BN with its SiLU (``bn_kernels.bn_act_eval`` of x with the running
+  statistics and parameters, fp32 (C,)), bitwise that chain, with the BN run
+  inside the conv's kernel as its input prologue, so that its output is never
+  written. The served forward's ``pw_bn`` and ``spatial_bn`` run so
+  (``models/dwiseneuro.py``). Forward only, like the eval BN;
 * ``dw_spatial_dx(dy, w, stride, hw)``: the input gradient of the spatial
   conv, (B, T, H, W, C) in dy's dtype;
 * ``dw_spatial_dw(x, dy, k, stride)`` and ``dw_temporal_dw(x, dy, k)``: the
@@ -45,25 +52,30 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from sensorium_tpu_torch.ops import _build
+from sensorium_tpu_torch.ops import _build, bn_kernels
 
 LAUNCHES = {name: 0 for name in ("dw_spatial_fwd", "dw_temporal_fwd", "dw_spatial_dx", "dw_spatial_dw",
-                                 "dw_temporal_dw", "fused_bn_silu_dw_spatial")}
+                                 "dw_temporal_dw", "fused_bn_silu_dw_spatial", "dw_spatial_fwd_bn",
+                                 "dw_temporal_fwd_bn")}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INT32_MAX = 2**31 - 1
 _ENTRIES: dict[str, ctypes._CFuncPtr] = {}
-# Entry point -> (library, number of pointer arguments, number of int64 sizes).
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+_BN = (_P, _P, _P, _P, ctypes.c_double)  # the prologue's mean, var, scale and bias, then eps
+# Entry point -> (library, its arguments before the stream).
 _SIGNATURES = {
-    "dw_spatial_fwd": ("dw_conv", 3, 12),
-    "dw_temporal_fwd": ("dw_conv", 3, 6),
-    "dw_spatial_dx": ("dw_conv_bwd", 3, 10),
-    "dw_spatial_dw": ("dw_conv_bwd", 4, 12),
-    "dw_temporal_dw": ("dw_conv_bwd", 4, 9),
-    "fused_bn_silu_dw_spatial": ("fused_bn_silu_dw", 5, 12),
+    "dw_spatial_fwd": ("dw_conv", (_P,) * 3 + (_I,) * 12),
+    "dw_temporal_fwd": ("dw_conv", (_P,) * 3 + (_I,) * 6),
+    "dw_spatial_dx": ("dw_conv_bwd", (_P,) * 3 + (_I,) * 10),
+    "dw_spatial_dw": ("dw_conv_bwd", (_P,) * 4 + (_I,) * 12),
+    "dw_temporal_dw": ("dw_conv_bwd", (_P,) * 4 + (_I,) * 9),
+    "fused_bn_silu_dw_spatial": ("fused_bn_silu_dw", (_P,) * 5 + (_I,) * 12),
+    "dw_spatial_fwd_bn": ("dw_conv", (_P,) * 3 + _BN + (_I,) * 12),
+    "dw_temporal_fwd_bn": ("dw_conv", (_P,) * 3 + _BN + (_I,) * 6),
 }
 # Kernel sizes the spatial and temporal kernels are compiled for.
-_COMPILED_KS = (3, 5)
+COMPILED_KS = (3, 5)
 # The temporal column walks (dw_conv.cu dw_temporal_fwd_walk, dw_conv_bwd.cu
 # dw_temporal_dw_walk): threads per block, one 16-byte channel vector of one
 # column each; the frames whose loads a thread starts together (dw_vec.cuh
@@ -201,7 +213,8 @@ def _fwd_cols(stride: int, rows: int, out_cols: int) -> int:
     return 4 if stride == 1 and rows * _cdiv(out_cols, 4) >= _FWD_LANES else 2
 
 
-def fwd_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, itemsize: int, sms: int) -> dict:
+def fwd_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, itemsize: int, sms: int,
+                        bn: bool = False) -> dict:
     """The tiling of ``dw_spatial_fwd_kernel`` for ``n`` frames of x (h, wd, c).
 
     A thread computes ``cols`` adjacent outputs of one row (a unit): 2 at
@@ -214,7 +227,8 @@ def fwd_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, it
     (``stride * (band - 1) + k`` of them; the next band of the same frame
     adds ``stride * band``) while the last band computes, in a ring of
     ``ring`` rows of ``stride * (col_tile - 1) + k`` columns in shared
-    memory, beside the block's weights in fp32. The column tile, then the
+    memory, beside the block's weights in fp32 (and, with the eval BN
+    prologue, ``bn``, its channels' a and b). The column tile, then the
     band, shrink until 3 blocks fit an SM's shared memory. Row groups split
     a frame only where the frames alone give fewer than 3 blocks per SM. The
     kernel takes ``band``, ``col_tile``, ``cols``, ``frames``,
@@ -223,7 +237,7 @@ def fwd_launch_geometry(n: int, h: int, wd: int, c: int, k: int, stride: int, it
     vec = 16 // itemsize
     rows, out_cols = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
     cols = _fwd_cols(stride, rows, out_cols)
-    weight_bytes = k * k * _FWD_TILE_VECS * vec * 4
+    weight_bytes = (k * k + (2 if bn else 0)) * _FWD_TILE_VECS * vec * 4
     channel_tiles = _cdiv(_cdiv(c, vec), _FWD_TILE_VECS)
 
     def tiling(col_tile: int, band: int) -> dict:
@@ -429,6 +443,21 @@ def _check_temporal(x: torch.Tensor, w: torch.Tensor) -> None:
         raise NotImplementedError(f"dw_temporal_fwd supports odd temporal kernels only, got k={w.shape[0]}")
 
 
+def _check_bn(name: str, x: torch.Tensor, bn: tuple) -> None:
+    """The prologue's mean, var, scale and bias: (C,) each."""
+    c = x.shape[-1]
+    if any(t.shape != (c,) for t in bn):
+        raise ValueError(f"{name}: mean, var, scale and bias must be (C,) with C={c}, "
+                         f"got {[tuple(t.shape) for t in bn]}")
+
+
+def _check_cuda_bn(name: str, x: torch.Tensor, bn: tuple) -> None:
+    for key, t in zip(("mean", "var", "scale", "bias"), bn):
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name}: {key} must be a contiguous float32 tensor on {x.device}, "
+                            f"got {t.dtype} on {t.device}")
+
+
 def _check_cuda_operands(name: str, **operands: torch.Tensor) -> None:
     (first_name, first), *rest = operands.items()
     if first.device.type != "cuda":
@@ -449,7 +478,7 @@ def _check_temporal_offsets(name: str, x: torch.Tensor, geo: dict) -> None:
     """The temporal kernels step along T with 32-bit offsets, up to a frame
     tile and k frames past the last."""
     _, t, h, wd, c = x.shape
-    if (t + geo["frame_tile"] + _COMPILED_KS[-1]) * h * wd * c > _INT32_MAX:
+    if (t + geo["frame_tile"] + COMPILED_KS[-1]) * h * wd * c > _INT32_MAX:
         raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the kernel's 32-bit frame offsets")
 
 
@@ -467,13 +496,13 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 def _entry(name: str, dtype: torch.dtype):
     """The C entry point ``<name>_<f32|bf16>`` with its signature declared:
-    the pointers, the sizes as int64, then the stream."""
+    ``_SIGNATURES[name]``, then the stream."""
     symbol = f"{name}_{_SUFFIX[dtype]}"
     if symbol not in _ENTRIES:
-        library, pointers, sizes = _SIGNATURES[name]
+        library, argtypes = _SIGNATURES[name]
         fn = getattr(_build.load(library), symbol)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int64] * sizes + [ctypes.c_void_p]
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
         _ENTRIES[symbol] = fn
     return _ENTRIES[symbol]
 
@@ -513,6 +542,14 @@ def dw_spatial_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch
     oh, ow = spatial_out_size(x.shape[2], k, stride), spatial_out_size(x.shape[3], k, stride)
     xp = F.pad(x, (0, 0, pad, pad, pad, pad))
     return _spatial_valid(xp, w, stride, oh, ow).to(x.dtype)
+
+
+def dw_spatial_fwd_bn_plain(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                            scale: torch.Tensor, bias: torch.Tensor, eps: float, stride: int) -> torch.Tensor:
+    """The chain the prologue kernel folds: ``dw_spatial_plain`` of
+    ``bn_act_eval_plain`` with SiLU."""
+    _check_bn("dw_spatial_fwd_bn", x, (mean, var, scale, bias))
+    return dw_spatial_plain(bn_kernels.bn_act_eval_plain(x, mean, var, scale, bias, eps, True), w, stride)
 
 
 def _check_fused(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, w: torch.Tensor, stride: int) -> None:
@@ -591,6 +628,14 @@ def dw_temporal_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
+def dw_temporal_fwd_bn_plain(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                             scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The chain the prologue kernel folds: ``dw_temporal_plain`` of
+    ``bn_act_eval_plain`` with SiLU."""
+    _check_bn("dw_temporal_fwd_bn", x, (mean, var, scale, bias))
+    return dw_temporal_plain(bn_kernels.bn_act_eval_plain(x, mean, var, scale, bias, eps, True), w)
+
+
 def dw_temporal_dw_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     """Tap-by-tap sums of x_pad * dy over (B, T, H, W), accumulated in fp32."""
     pad = k // 2
@@ -634,22 +679,46 @@ def _spatial_fwd_fake(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Te
     return x.new_empty((b, t, spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride), c))
 
 
-@_custom_op("dw_spatial_fwd", dw_spatial_plain, _spatial_fwd_fake)
-def _dw_spatial_fwd_op(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
-    _check_spatial(x, w, stride)
-    _check_cuda_operands("dw_spatial_fwd", x=x, w=w)
+def _launch_spatial_fwd(name: str, x: torch.Tensor, w: torch.Tensor, stride: int, bn: tuple = (),
+                        eps: float = 0.0) -> torch.Tensor:
+    """``dw_spatial_fwd_kernel`` on CUDA operands, with the eval BN prologue
+    of ``bn`` (mean, var, scale, bias) where given."""
+    _check_cuda_operands(name, x=x, w=w)
+    if bn:
+        _check_cuda_bn(name, x, bn)
     k = w.shape[0]
-    if k not in _COMPILED_KS:
-        raise NotImplementedError(f"dw_spatial_fwd: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
+    if k not in COMPILED_KS:
+        raise NotImplementedError(f"{name}: the kernel is compiled for k in {COMPILED_KS}, got k={k}")
     b, t, h, wd, c = x.shape
     oh, ow = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    geo = fwd_launch_geometry(b * t, h, wd, c, k, stride, x.element_size(), sms)
-    _check_grid("dw_spatial_fwd", tuple(x.shape), geo, h * wd * c, oh * ow * c)
+    geo = fwd_launch_geometry(b * t, h, wd, c, k, stride, x.element_size(), sms, bn=bool(bn))
+    _check_grid(name, tuple(x.shape), geo, h * wd * c, oh * ow * c)
     y = torch.empty((b, t, oh, ow, c), dtype=x.dtype, device=x.device)
-    _launch("dw_spatial_fwd", x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(), b * t, h, wd, c, k, stride,
+    prologue = (*(p.data_ptr() for p in bn), eps) if bn else ()
+    _launch(name, x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(), *prologue, b * t, h, wd, c, k, stride,
             geo["band"], geo["col_tile"], geo["cols"], geo["frames"], geo["bands_per_block"], geo["smem_bytes"])
     return y
+
+
+@_custom_op("dw_spatial_fwd", dw_spatial_plain, _spatial_fwd_fake)
+def _dw_spatial_fwd_op(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    _check_spatial(x, w, stride)
+    return _launch_spatial_fwd("dw_spatial_fwd", x, w, stride)
+
+
+def _spatial_fwd_bn_fake(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                         scale: torch.Tensor, bias: torch.Tensor, eps: float, stride: int) -> torch.Tensor:
+    _check_bn("dw_spatial_fwd_bn", x, (mean, var, scale, bias))
+    return _spatial_fwd_fake(x, w, stride)
+
+
+@_custom_op("dw_spatial_fwd_bn", dw_spatial_fwd_bn_plain, _spatial_fwd_bn_fake)
+def _dw_spatial_fwd_bn_op(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                          scale: torch.Tensor, bias: torch.Tensor, eps: float, stride: int) -> torch.Tensor:
+    _check_spatial(x, w, stride)
+    _check_bn("dw_spatial_fwd_bn", x, (mean, var, scale, bias))
+    return _launch_spatial_fwd("dw_spatial_fwd_bn", x, w, stride, (mean, var, scale, bias), eps)
 
 
 def _fused_fake(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, w: torch.Tensor,
@@ -668,9 +737,9 @@ def _fused_bn_silu_dw_spatial_op(x: torch.Tensor, scale: torch.Tensor, shift: to
             raise TypeError(f"fused_bn_silu_dw_spatial: {name} must be a contiguous float32 tensor on {x.device}, "
                             f"got {t.dtype} on {t.device}")
     k = w.shape[0]
-    if k not in _COMPILED_KS:
+    if k not in COMPILED_KS:
         raise NotImplementedError(
-            f"fused_bn_silu_dw_spatial: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
+            f"fused_bn_silu_dw_spatial: the kernel is compiled for k in {COMPILED_KS}, got k={k}")
     b, t, h, wd, c = x.shape
     oh, ow = spatial_out_size(h, k, stride), spatial_out_size(wd, k, stride)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -688,23 +757,47 @@ def _temporal_fwd_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(x)
 
 
-@_custom_op("dw_temporal_fwd", dw_temporal_plain, _temporal_fwd_fake)
-def _dw_temporal_fwd_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    _check_temporal(x, w)
-    _check_cuda_operands("dw_temporal_fwd", x=x, w=w)
+def _launch_temporal_fwd(name: str, x: torch.Tensor, w: torch.Tensor, bn: tuple = (),
+                         eps: float = 0.0) -> torch.Tensor:
+    """``dw_temporal_fwd_walk`` on CUDA operands, with the eval BN prologue of
+    ``bn`` (mean, var, scale, bias) where given."""
+    _check_cuda_operands(name, x=x, w=w)
+    if bn:
+        _check_cuda_bn(name, x, bn)
     k = w.shape[0]
-    if k not in _COMPILED_KS:
-        raise NotImplementedError(f"dw_temporal_fwd: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
+    if k not in COMPILED_KS:
+        raise NotImplementedError(f"{name}: the kernel is compiled for k in {COMPILED_KS}, got k={k}")
     b, t, h, wd, c = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     geo = temporal_launch_geometry("dw_temporal_fwd", b, t, h * wd, c, k, x.element_size(), sms)
-    _check_temporal_offsets("dw_temporal_fwd", x, geo)
+    _check_temporal_offsets(name, x, geo)
     if geo["threads"] + _TEMPORAL_THREADS > _INT32_MAX:
-        raise ValueError(f"dw_temporal_fwd: shape {tuple(x.shape)} exceeds the kernel's grid")
+        raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the kernel's grid")
     y = torch.empty_like(x)
-    _launch("dw_temporal_fwd", x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(),
+    prologue = (*(p.data_ptr() for p in bn), eps) if bn else ()
+    _launch(name, x.dtype, x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(), *prologue,
             b, t, h * wd, c, k, geo["frame_tile"])
     return y
+
+
+@_custom_op("dw_temporal_fwd", dw_temporal_plain, _temporal_fwd_fake)
+def _dw_temporal_fwd_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check_temporal(x, w)
+    return _launch_temporal_fwd("dw_temporal_fwd", x, w)
+
+
+def _temporal_fwd_bn_fake(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                          scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    _check_bn("dw_temporal_fwd_bn", x, (mean, var, scale, bias))
+    return _temporal_fwd_fake(x, w)
+
+
+@_custom_op("dw_temporal_fwd_bn", dw_temporal_fwd_bn_plain, _temporal_fwd_bn_fake)
+def _dw_temporal_fwd_bn_op(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                           scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    _check_temporal(x, w)
+    _check_bn("dw_temporal_fwd_bn", x, (mean, var, scale, bias))
+    return _launch_temporal_fwd("dw_temporal_fwd_bn", x, w, (mean, var, scale, bias), eps)
 
 
 def _check_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, h: int, wd: int) -> None:
@@ -729,8 +822,8 @@ def _dw_spatial_dx_op(dy: torch.Tensor, w: torch.Tensor, stride: int, h: int, wd
     _check_dx(dy, w, stride, h, wd)
     _check_cuda_operands("dw_spatial_dx", dy=dy, w=w)
     k = w.shape[0]
-    if k not in _COMPILED_KS:
-        raise NotImplementedError(f"dw_spatial_dx: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
+    if k not in COMPILED_KS:
+        raise NotImplementedError(f"dw_spatial_dx: the kernel is compiled for k in {COMPILED_KS}, got k={k}")
     b, t, oh, ow, c = dy.shape
     sms = torch.cuda.get_device_properties(dy.device).multi_processor_count
     geo = dx_launch_geometry(b * t, h, wd, c, k, stride, dy.element_size(), sms)
@@ -761,8 +854,8 @@ def _spatial_dw_fake(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> 
 def _dw_spatial_dw_op(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     _check_spatial_dw(x, dy, k, stride)
     _check_cuda_operands("dw_spatial_dw", x=x, dy=dy)
-    if k not in _COMPILED_KS:
-        raise NotImplementedError(f"dw_spatial_dw: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
+    if k not in COMPILED_KS:
+        raise NotImplementedError(f"dw_spatial_dw: the kernel is compiled for k in {COMPILED_KS}, got k={k}")
     if stride not in (1, 2):
         raise NotImplementedError(f"dw_spatial_dw: stride {stride} not supported (1 or 2)")
     b, t, h, wd, c = x.shape
@@ -800,8 +893,8 @@ def _temporal_dw_fake(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor
 def _dw_temporal_dw_op(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     _check_temporal_dw(x, dy)
     _check_cuda_operands("dw_temporal_dw", x=x, dy=dy)
-    if k not in _COMPILED_KS:
-        raise NotImplementedError(f"dw_temporal_dw: the kernel is compiled for k in {_COMPILED_KS}, got k={k}")
+    if k not in COMPILED_KS:
+        raise NotImplementedError(f"dw_temporal_dw: the kernel is compiled for k in {COMPILED_KS}, got k={k}")
     b, t, h, wd, c = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     geo = temporal_launch_geometry("dw_temporal_dw", b, t, h * wd, c, k, x.element_size(), sms)
@@ -834,6 +927,18 @@ def dw_spatial_fwd(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.T
     return torch.ops.sensorium.dw_spatial_fwd(x, w, stride)
 
 
+def dw_spatial_fwd_bn(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                      scale: torch.Tensor, bias: torch.Tensor, eps: float, stride: int = 1) -> torch.Tensor:
+    """``dw_spatial_fwd(bn_act_eval(x, mean, var, scale, bias, eps, act=True), w,
+    stride)``, bitwise, with the BN inside the conv's kernel; or that chain's
+    plain version on CPU."""
+    _check_spatial(x, w, stride)
+    _check_bn("dw_spatial_fwd_bn", x, (mean, var, scale, bias))
+    if not _on_cpu(x, w, mean, var, scale, bias):
+        _check_cuda_operands("dw_spatial_fwd_bn", x=x, w=w)
+    return torch.ops.sensorium.dw_spatial_fwd_bn(x, w, mean, var, scale, bias, eps, stride)
+
+
 def fused_bn_silu_dw_spatial(
     x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, w: torch.Tensor, stride: int = 1
 ) -> torch.Tensor:
@@ -850,6 +955,18 @@ def dw_temporal_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_temporal(x, w)
     _check_route("dw_temporal_fwd", x=x, w=w)
     return torch.ops.sensorium.dw_temporal_fwd(x, w)
+
+
+def dw_temporal_fwd_bn(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                       scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """``dw_temporal_fwd(bn_act_eval(x, mean, var, scale, bias, eps, act=True),
+    w)``, bitwise, with the BN inside the conv's kernel; or that chain's plain
+    version on CPU."""
+    _check_temporal(x, w)
+    _check_bn("dw_temporal_fwd_bn", x, (mean, var, scale, bias))
+    if not _on_cpu(x, w, mean, var, scale, bias):
+        _check_cuda_operands("dw_temporal_fwd_bn", x=x, w=w)
+    return torch.ops.sensorium.dw_temporal_fwd_bn(x, w, mean, var, scale, bias, eps)
 
 
 def dw_spatial_dx(dy: torch.Tensor, w: torch.Tensor, stride: int, hw: tuple[int, int]) -> torch.Tensor:

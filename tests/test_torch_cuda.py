@@ -522,7 +522,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     (loss_cpu, grads_cpu, none), (loss_cuda, grads_cuda, launches) = out["cpu"], out["cuda"]
     assert set(none.values()) == {0}
     assert launches == {"dw_spatial_fwd": 3, "dw_temporal_fwd": 5, "dw_spatial_dx": 2, "dw_spatial_dw": 2,
-                        "dw_temporal_dw": 2, "fused_bn_silu_dw_spatial": 0}
+                        "dw_temporal_dw": 2, "fused_bn_silu_dw_spatial": 0, "dw_spatial_fwd_bn": 0,
+                        "dw_temporal_fwd_bn": 0}
     np.testing.assert_allclose(loss_cuda, loss_cpu, rtol=1e-4)
     largest = max(g.abs().max().item() for g in grads_cpu.values())
     for name, g in grads_cpu.items():
@@ -948,8 +949,9 @@ def test_window_artifact_traced_on_the_card_matches_the_live_model(card_model, t
         before = dict(dw_kernels.LAUNCHES)
         with torch.inference_mode():
             got = artifact(torch.from_numpy(x).cuda())
-        assert dw_kernels.LAUNCHES["dw_spatial_fwd"] == before["dw_spatial_fwd"] + len(TINY["core_features"])
-        assert dw_kernels.LAUNCHES["dw_temporal_fwd"] == before["dw_temporal_fwd"] + len(TINY["core_features"])
+        blocks = len(TINY["core_features"])
+        assert dw_kernels.LAUNCHES["dw_spatial_fwd_bn"] == before["dw_spatial_fwd_bn"] + blocks
+        assert dw_kernels.LAUNCHES["dw_temporal_fwd_bn"] == before["dw_temporal_fwd_bn"] + blocks
         torch.testing.assert_close(got, model.predict(x, mouse_index=1), rtol=1e-5, atol=1e-6)
 
 
@@ -1011,7 +1013,7 @@ def test_predictor_over_a_model_axis_on_the_card_matches_one_card(card_model, sh
     got = sharded.predict_trial(*trial, 1)
     windows = 40 - (ARGUS["frame_stack"]["size"] - 1) * ARGUS["frame_stack"]["step"]
     forwards = sum(min(num_data, windows - start, 8) for start in range(0, windows, 8))
-    assert dw_kernels.LAUNCHES["dw_spatial_fwd"] - before["dw_spatial_fwd"] == 2 * forwards
+    assert dw_kernels.LAUNCHES["dw_spatial_fwd_bn"] - before["dw_spatial_fwd_bn"] == 2 * forwards
     np.testing.assert_allclose(got, one.predict_trial(*trial, 1), rtol=1e-5, atol=1e-5)
 
 
@@ -1179,7 +1181,9 @@ BN_CHUNK = 1 << 26  # elements a comparison holds in fp32 at once
 
 def bn_call_shapes(config_name: str, device) -> set:
     """(x shape, act) of every BN call of one chunk forward (32 windows) of
-    the configuration's model on the card, read by hooks."""
+    the configuration's model on the card, read by hooks. The forward runs
+    in training mode without a gradient: in eval, pw_bn and spatial_bn run
+    inside the depthwise convs, and the kernels still serve them in training."""
     import importlib
 
     from sensorium_tpu_torch.models.dwiseneuro import BatchNormAct
@@ -1192,8 +1196,9 @@ def bn_call_shapes(config_name: str, device) -> set:
         if isinstance(module, BatchNormAct):
             module.register_forward_pre_hook(lambda m, args: calls.add((tuple(args[0].shape), m.act)))
     frames = config["argus_params"]["frame_stack"]["size"]
-    with torch.inference_mode():
-        model(torch.zeros(32, params["in_channels"], frames, *config["image_size"], device=device))
+    inputs = torch.zeros(32, params["in_channels"], frames, *config["image_size"], device=device)
+    with torch.no_grad():
+        model.train()(inputs, generator=torch.Generator(device=device).manual_seed(0))
     del model
     torch.cuda.empty_cache()
     return calls
@@ -1308,6 +1313,65 @@ def test_bn_kernels_match_plain_at_every_bn_shape_of_both_configurations(cuda):
         torch.cuda.empty_cache()
 
 
+# The BN kernels' bf16 apply with SiLU, silu(round(x*a + b)) rounded to bf16,
+# with SiLU as __fdividef(z, 1 + __expf(-z)): the hardware exponential and fast
+# division that bn_act.cuh's silu<bf16> takes as ex2.approx.ftz and
+# rcp.approx.ftz directly. a and b arrive at run time, so that x*a + b is
+# computed as the kernels compute it (fmaf(-0, 1, 0) is +0).
+SILU_EXPF_SOURCE = r"""
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+__global__ void silu_expf_kernel(const __nv_bfloat16* x, __nv_bfloat16* y, int n, float a, float b) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const float z = __bfloat162float(__float2bfloat16(fmaf(__bfloat162float(x[i]), a, b)));
+    y[i] = __float2bfloat16(__fdividef(z, 1.0f + __expf(-z)));
+  }
+}
+
+extern "C" int silu_expf(const void* x, void* y, int n, float a, float b, cudaStream_t stream) {
+  silu_expf_kernel<<<(n + 255) / 256, 256, 0, stream>>>(static_cast<const __nv_bfloat16*>(x),
+                                                        static_cast<__nv_bfloat16*>(y), n, a, b);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+@pytest.mark.cuda
+def test_bf16_silu_of_the_bn_kernels_is_bitwise_the_expf_form_on_every_bf16_value(cuda, tmp_path):
+    """bn_act_apply with SiLU at a = 1, b = 0 on all 65,536 bf16 values
+    gives the bits of the same apply with __fdividef(z, 1 + __expf(-z)),
+    compiled here with the kernels' own nvcc flags; NaN where that is NaN."""
+    import ctypes
+    import subprocess
+
+    from sensorium_tpu_torch.ops import _build
+
+    source, library = tmp_path / "silu_expf.cu", tmp_path / "silu_expf.so"
+    source.write_text(SILU_EXPF_SOURCE)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(library), str(source)], check=True,
+                   capture_output=True)
+    silu_expf = ctypes.CDLL(str(library)).silu_expf
+    silu_expf.restype = ctypes.c_int
+    silu_expf.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                          ctypes.c_void_p]
+
+    bits = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16).to(cuda).reshape(1024, 64)
+    stats = torch.zeros(5, 64, device=cuda)
+    stats[3] = 1.0  # a = 1, b = 0: z = x (-0 as +0), so SiLU sees every bf16 value
+    got = bn_kernels.bn_act_apply(x, stats, True)
+    want = torch.empty_like(x)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert silu_expf(x.data_ptr(), want.data_ptr(), x.numel(), 1.0, 0.0, stream) == 0
+    torch.cuda.synchronize()
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    differ = (got.view(torch.int16) != want.view(torch.int16)) & ~nan
+    assert not differ.any(), f"{int(differ.sum())} inputs differ, e.g. {x[differ][:8].tolist()}"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_function_takes_a_strided_shortcut_and_reruns_bitwise(cuda, dtype):
@@ -1346,7 +1410,9 @@ def test_a_flagship_step_and_chunk_forward_run_bn_through_the_kernels_alone(cuda
     """One train step of true_batch_001 and one chunk forward launch the BN
     kernels as the config says (52 BNs, 30 with SiLU; block 1's 5 rerun), and
     the eager chain is gone: no ``addcmul``, and SiLU's own ops only for
-    the squeeze-excite gates."""
+    the squeeze-excite gates. The chunk forward runs each block's pw_bn and
+    spatial_bn inside its depthwise convs (9 + 9 prologue launches, 34 BN
+    launches); the step launches no prologue conv."""
     from torch.profiler import ProfilerActivity, profile
 
     from sensorium_tpu_torch.configs.true_batch_001 import config
@@ -1368,9 +1434,9 @@ def test_a_flagship_step_and_chunk_forward_run_bn_through_the_kernels_alone(cuda
                           np.float32), weights)
     model.train_step(batch)
     torch.cuda.synchronize()
-    counts = {}
+    counts, convs = {}, {}
     for phase in ("train", "forward"):
-        before = dict(bn_kernels.LAUNCHES)
+        before, dw_before = dict(bn_kernels.LAUNCHES), dict(dw_kernels.LAUNCHES)
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             if phase == "train":
                 model.train_step(batch)
@@ -1381,15 +1447,24 @@ def test_a_flagship_step_and_chunk_forward_run_bn_through_the_kernels_alone(cuda
         ops = {e.key: e.count for e in prof.key_averages()}
         counts[phase] = ({k: bn_kernels.LAUNCHES[k] - before[k] for k in before},
                          {k: ops.get(k, 0) for k in ("aten::addcmul", "aten::silu", "aten::silu_backward")})
+        convs[phase] = {k: dw_kernels.LAUNCHES[k] - dw_before[k] for k in ("dw_spatial_fwd", "dw_temporal_fwd",
+                                                                          "dw_spatial_fwd_bn", "dw_temporal_fwd_bn")}
     plain, silu = bns - act, act
+    blocks = module.num_blocks
     assert counts["train"] == (
         {"bn_stats": bns + rerun, "bn_finalize": bns + rerun, "bn_apply": plain + rerun - rerun_act,
          "bn_silu_apply": silu + rerun_act, "bn_grad": plain, "bn_silu_grad": silu, "bn_grad_sum": bns,
          "bn_dx": plain, "bn_silu_dx": silu},
         {"aten::addcmul": 0, "aten::silu": gates + len(module.remat_set), "aten::silu_backward": gates})
     assert counts["forward"] == (
-        {**{k: 0 for k in bn_kernels.LAUNCHES}, "bn_apply": plain, "bn_silu_apply": silu},
+        {**{k: 0 for k in bn_kernels.LAUNCHES}, "bn_apply": plain, "bn_silu_apply": silu - 2 * blocks},
         {"aten::addcmul": 0, "aten::silu": gates, "aten::silu_backward": 0})
+    assert plain + silu - 2 * blocks == 34
+    remat = len(module.remat_set)
+    assert convs == {"train": {"dw_spatial_fwd": blocks + remat, "dw_temporal_fwd": 2 * blocks + remat,
+                               "dw_spatial_fwd_bn": 0, "dw_temporal_fwd_bn": 0},
+                     "forward": {"dw_spatial_fwd": 0, "dw_temporal_fwd": 0, "dw_spatial_fwd_bn": blocks,
+                                 "dw_temporal_fwd_bn": blocks}}
     del model, module
     torch.cuda.empty_cache()
 
@@ -1397,10 +1472,11 @@ def test_a_flagship_step_and_chunk_forward_run_bn_through_the_kernels_alone(cuda
 @pytest.mark.cuda
 def test_trial_artifact_traces_and_serves_through_the_bn_ops(card_model, tmp_path):
     """The trial artifact traced on the card holds each BN as one
-    ``sensorium::bn_act_eval`` node (SiLU nodes only for the squeeze-excite
-    gates) and serves through the kernel: the BN
-    launches come in chunk forwards of the model's BNs (with and without
-    SiLU), and nothing of the training path."""
+    ``sensorium::bn_act_eval`` node but each block's pw_bn and spatial_bn,
+    which its ``sensorium::dw_*_fwd_bn`` nodes hold (SiLU nodes only for the
+    squeeze-excite gates), and serves through the kernels: the BN launches
+    come in chunk forwards of the model's other BNs (with and without SiLU),
+    and nothing of the training path."""
     from sensorium_tpu_torch.infer.export import export_model_file, load_exported
 
     model, path = card_model
@@ -1410,9 +1486,13 @@ def test_trial_artifact_traces_and_serves_through_the_bn_ops(card_model, tmp_pat
     program = torch.export.load(trial)
     nodes = [node for gm in program.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
              for node in gm.graph.nodes if node.op == "call_function"]
+    blocks = len(TINY["core_features"])
+    served, served_act = bns - 2 * blocks, act - 2 * blocks  # pw_bn and spatial_bn run inside the convs
     traced = sum("sensorium.bn_act_eval" in str(node.target) for node in nodes)
+    folded = sum("sensorium.dw_spatial_fwd_bn" in str(node.target) for node in nodes)
     gates = sum(str(node.target) == "aten.silu.default" for node in nodes)
-    assert traced > 0 and traced % bns == 0 and gates == len(TINY["core_features"]) * traced // bns
+    assert traced > 0 and traced % served == 0 and gates == blocks * traced // served
+    assert folded == blocks * traced // served
     rng = np.random.default_rng(44)
     args = (torch.from_numpy(rng.uniform(0, 255, (32, 12, 14)).astype(np.float32)),
             torch.from_numpy(rng.uniform(0, 5, (2, 32)).astype(np.float32)),
@@ -1422,6 +1502,196 @@ def test_trial_artifact_traces_and_serves_through_the_bn_ops(card_model, tmp_pat
         out = load_exported(trial, device="cuda")(*(a.cuda() for a in args))
     torch.cuda.synchronize()
     launched = {k: bn_kernels.LAUNCHES[k] - before[k] for k in before}
-    forwards = launched["bn_silu_apply"] // act
+    forwards = launched["bn_silu_apply"] // served_act
     assert forwards >= 1 and bool(torch.isfinite(out).all())
-    assert launched == {**{k: 0 for k in before}, "bn_apply": (bns - act) * forwards, "bn_silu_apply": act * forwards}
+    assert launched == {**{k: 0 for k in before}, "bn_apply": (served - served_act) * forwards,
+                        "bn_silu_apply": served_act * forwards}
+
+
+# ------------------------------------------------------ eval BN prologue convs
+#
+# dw_spatial_fwd_bn and dw_temporal_fwd_bn run an eval BN with its SiLU inside
+# the depthwise conv that reads it, by bn_act.cu's own arithmetic: each must
+# be bitwise the chain bn_act_eval -> dw_*_fwd on the same card.
+
+EPS = 1e-5
+
+
+def prologue_bn(c: int, gen, device) -> tuple:
+    """An eval BN's (mean, var, scale, bias) whose b = bias - mean * a lies
+    well away from 0, so that silu(b) (what a zero of the padding would
+    become if the prologue ran on it) is not 0."""
+
+    def randn(*size):
+        return torch.randn(*size, generator=gen, device=device)
+
+    mean = 1.5 + randn(c)
+    return mean, 0.5 + torch.rand(c, generator=gen, device=device), 1 + 0.2 * randn(c), 0.2 * randn(c)
+
+
+def check_prologue_conv(x, w, bn, stride=None) -> None:
+    """The prologue conv (spatial with a ``stride``, else temporal) against
+    ``dw_*_fwd(bn_act_eval(x))``, bitwise, with one launch of its own."""
+    chain_act = bn_kernels.bn_act_eval(x, *bn, EPS, True)
+    name = "dw_temporal_fwd_bn" if stride is None else "dw_spatial_fwd_bn"
+    before = dict(dw_kernels.LAUNCHES)
+    if stride is None:
+        got, chain = dw_kernels.dw_temporal_fwd_bn(x, w, *bn, EPS), dw_kernels.dw_temporal_fwd(chain_act, w)
+    else:
+        got, chain = dw_kernels.dw_spatial_fwd_bn(x, w, *bn, EPS, stride), dw_kernels.dw_spatial_fwd(chain_act, w,
+                                                                                                       stride)
+    torch.cuda.synchronize()
+    launched = {k: dw_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {**{k: 0 for k in before}, name: 1, name.removesuffix("_bn"): 1}
+    assert got.dtype == x.dtype and got.shape == chain.shape
+    assert torch.equal(got, chain), f"{name} {tuple(x.shape)} {x.dtype} stride={stride}"
+
+
+def block_conv_shapes(config_name: str) -> set:
+    """(h, w, c, stride, k, temporal k) of every block's depthwise convs of the
+    configuration's model: the spatial conv's input, and the temporal conv's
+    (the spatial output) follows from it."""
+    import importlib
+
+    config = importlib.import_module(f"sensorium_tpu_torch.configs.{config_name}").config
+    params = config["argus_params"]["nn_module"][1]
+    h, w = config["image_size"]
+    k, kt = params["spatial_kernel"], params["temporal_kernel"]
+    shapes = set()
+    for f, s in zip(params["core_features"], params["spatial_strides"]):
+        shapes.add((h, w, f * params["expansion_ratio"], s, k, kt))
+        h, w = dw_kernels.spatial_out_size(h, k, s), dw_kernels.spatial_out_size(w, k, s)
+    return shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prologue_convs_are_the_chain_at_every_block_shape_of_both_configurations(cuda, dtype):
+    """Every block's spatial and temporal conv of true_batch_001 and
+    distillation_001 at a served chunk (32 windows x 16 frames), strides 1
+    and 2, k = 3 and 5: bitwise the chain."""
+    shapes = block_conv_shapes("true_batch_001") | block_conv_shapes("distillation_001")
+    assert {s[2] for s in shapes} == {448, 896, 1792, 384, 768, 1536} and {s[3] for s in shapes} == {1, 2}
+    gen = torch.Generator(device=cuda).manual_seed(50)
+    for h, w, c, stride, k, kt in sorted(shapes, key=lambda s: -s[0] * s[1] * s[2]):
+        bn = prologue_bn(c, gen, cuda)
+        x = torch.randn(32, 16, h, w, c, generator=gen, device=cuda).to(dtype)
+        check_prologue_conv(x, (torch.randn(k, k, c, generator=gen, device=cuda) / k).to(dtype), bn, stride)
+        oh, ow = dw_kernels.spatial_out_size(h, k, stride), dw_kernels.spatial_out_size(w, k, stride)
+        x = torch.randn(32, 16, oh, ow, c, generator=gen, device=cuda).to(dtype)
+        check_prologue_conv(x, (torch.randn(kt, c, generator=gen, device=cuda) / kt**0.5).to(dtype), bn)
+        del x
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "batch, hw, c, k, stride",
+    [((2, 3), hw, 24, k, s) for hw in ((33, 17), (7, 5)) for k in (3, 5) for s in (1, 2)]
+    + [((2, 3), hw, c, 3, s) for hw, c in (((2, 70), 24), ((70, 3), 24), ((1, 1), 24), ((9, 11), 20),
+                                           ((9, 11), 22), ((10, 12), 264)) for s in (1, 2)]
+    + [((64, 128), hw, c, k, s) for hw, c, k, s in (((7, 5), 24, 3, 1), ((4, 4), 22, 3, 2), ((1, 1), 8, 5, 1))],
+)
+def test_spatial_prologue_conv_is_the_chain_at_tile_edges(cuda, batch, hw, c, k, stride, dtype):
+    """The spatial forward's tile edges (as test_fwd_kernel_matches_plain_at_tile_edges
+    gives them) and blocks that walk several frames: each band's new rows
+    take the prologue once, the padding none."""
+    gen = torch.Generator(device=cuda).manual_seed(51)
+    x = torch.randn(*batch, *hw, c, generator=gen, device=cuda).to(dtype)
+    check_prologue_conv(x, (torch.randn(k, k, c, generator=gen, device=cuda) / k).to(dtype),
+                        prologue_bn(c, gen, cuda), stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("t, c", [(1, 24), (2, 24), (37, 24), (7, 20), (7, 22), (7, 264)])
+def test_temporal_prologue_conv_is_the_chain_at_walk_edges(cuda, t, c, k, dtype):
+    """The column walk's edges: T below k, T not a multiple of the frame
+    tile, channel tails and C wider than a tile; frames past the column stay
+    zero."""
+    gen = torch.Generator(device=cuda).manual_seed(52)
+    x = torch.randn(2, t, 9, 11, c, generator=gen, device=cuda).to(dtype)
+    check_prologue_conv(x, (torch.randn(k, c, generator=gen, device=cuda) / k**0.5).to(dtype),
+                        prologue_bn(c, gen, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [None, 1, 2])
+def test_prologue_convs_take_unaligned_pointers(cuda, stride, dtype):
+    """x one element past a 16-byte boundary: staged and loaded element by element."""
+    gen = torch.Generator(device=cuda).manual_seed(53)
+    values = torch.randn(2, 7, 9, 10, 32, generator=gen, device=cuda).to(dtype)
+    x = torch.empty(values.numel() + 1, device=cuda, dtype=dtype)[1:].view(values.shape)
+    x.copy_(values)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    w = torch.randn(*((3, 3) if stride else (5,)), 32, generator=gen, device=cuda).to(dtype) / 3
+    check_prologue_conv(x, w, prologue_bn(32, gen, cuda), stride)
+
+
+@pytest.mark.cuda
+def test_prologue_convs_refuse_bad_operands_on_the_card(cuda):
+    """k = 7 is not compiled (the CPU still answers through the chain); the
+    BN's vectors must be float32 on x's card."""
+    x = torch.randn(1, 2, 9, 8, 8)
+    bn = (torch.zeros(8), torch.ones(8), torch.ones(8), torch.zeros(8))
+    before = dict(dw_kernels.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="k=7"):
+        dw_kernels.dw_spatial_fwd_bn(x.to(cuda), torch.zeros(7, 7, 8, device=cuda), *(t.to(cuda) for t in bn), EPS)
+    with pytest.raises(TypeError, match="mean must be a contiguous float32"):
+        dw_kernels.dw_temporal_fwd_bn(x.to(cuda), torch.zeros(3, 8, device=cuda), bn[0].double().to(cuda),
+                                      *(t.to(cuda) for t in bn[1:]), EPS)
+    with pytest.raises(TypeError, match="var must be a contiguous float32"):
+        dw_kernels.dw_spatial_fwd_bn(x.to(cuda), torch.zeros(3, 3, 8, device=cuda), bn[0].to(cuda), bn[1],
+                                     *(t.to(cuda) for t in bn[2:]), EPS)
+    assert dw_kernels.LAUNCHES == before
+    assert dw_kernels.dw_spatial_fwd_bn(x, torch.zeros(7, 7, 8), *bn, EPS).shape == (1, 2, 9, 8, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_an_eval_forward_with_the_prologue_convs_is_bitwise_the_chain(cuda, dtype, monkeypatch):
+    """DwiseNeuro at the flagship's widths, its BNs' running statistics
+    fitted to the batch and then moved (so every BN shifts and scales, and
+    b != 0 on the border): the eval forward with pw_bn and spatial_bn inside
+    the depthwise convs is bitwise the forward through the same modules'
+    BatchNormAct and conv calls."""
+    from sensorium_tpu_torch.configs.true_batch_001 import config
+    from sensorium_tpu_torch.models import dwiseneuro
+    from sensorium_tpu_torch.ops.norm import BatchNorm
+
+    name, params = config["argus_params"]["nn_module"]
+    model = get_nn_module(name, {**params, "dtype": dtype}, device=cuda)
+    frames = config["argus_params"]["frame_stack"]["size"]
+    gen = torch.Generator(device=cuda).manual_seed(54)
+    inputs = 255 * torch.rand(4, params["in_channels"], frames, *config["image_size"], generator=gen, device=cuda)
+
+    def fit(module, args):
+        x = args[0].float().reshape(-1, args[0].shape[-1])
+        c = x.shape[1]
+        module.mean.copy_(x.mean(0) + 0.2 * x.std(0) * torch.randn(c, generator=gen, device=cuda))
+        module.var.copy_(x.var(0) * (0.8 + 0.4 * torch.rand(c, generator=gen, device=cuda)) + 1e-3)
+        module.scale.data.copy_(1 + 0.2 * torch.randn(c, generator=gen, device=cuda))
+        module.bias.data.copy_(0.2 * torch.randn(c, generator=gen, device=cuda))
+
+    with monkeypatch.context() as patch, torch.inference_mode():
+        patch.setattr(dwiseneuro, "eval_bn_runs_in_dw", lambda *kernels: False)
+        hooks = [m.register_forward_pre_hook(fit) for m in model.modules() if isinstance(m, BatchNorm)]
+        model(inputs)  # every BN's statistics fitted, in the order the forward meets them
+        for hook in hooks:
+            hook.remove()
+        before = dict(dw_kernels.LAUNCHES)
+        chain = model(inputs)
+        chain_launches = {k: dw_kernels.LAUNCHES[k] - before[k] for k in before}
+    with torch.inference_mode():
+        before = dict(dw_kernels.LAUNCHES)
+        folded = model(inputs)
+        launches = {k: dw_kernels.LAUNCHES[k] - before[k] for k in before}
+    blocks = model.num_blocks
+    zero = {k: 0 for k in before}
+    assert chain_launches == {**zero, "dw_spatial_fwd": blocks, "dw_temporal_fwd": blocks}
+    assert launches == {**zero, "dw_spatial_fwd_bn": blocks, "dw_temporal_fwd_bn": blocks}
+    assert bool(torch.isfinite(chain).all()) and chain.abs().max() > 0
+    assert torch.equal(folded, chain)

@@ -132,6 +132,24 @@ def test_eval_forward_under_cudnn_matches_jax(monkeypatch):
         np.testing.assert_allclose(got[mouse][:, :num], expected[mouse][:, :num], rtol=MODEL_RTOL, atol=MODEL_ATOL)
 
 
+def test_eval_bn_runs_in_the_convs_only_on_the_kernels_route(monkeypatch):
+    """The prologue convs are the hand-written kernels' (``eval_bn_runs_in_dw``):
+    under ``cudnn``, or for a kernel size they are not compiled for, an eval
+    block keeps the BN passes and the library's convs."""
+    k3, k5, k7 = torch.zeros(3, 3, 8), torch.zeros(5, 8), torch.zeros(7, 7, 8)
+    monkeypatch.delenv("SENSORIUM_DW_IMPL", raising=False)
+    assert conv.eval_bn_runs_in_dw(k3, k5) and not conv.eval_bn_runs_in_dw(k7, k5)
+    monkeypatch.setenv("SENSORIUM_DW_IMPL", "cudnn")
+    assert not conv.eval_bn_runs_in_dw(k3, k5)
+    called = []
+    monkeypatch.setattr(conv, "dw_spatial_fwd_bn", lambda *args: called.append(args))
+    monkeypatch.setattr(conv, "dw_temporal_fwd_bn", lambda *args: called.append(args))
+    model = port_model(MODEL_KWARGS, perturbed_variables(MODEL_KWARGS, seed=0))
+    with torch.no_grad():
+        out = model(torch.zeros(1, 5, 8, 16, 16))
+    assert not called and bool(torch.isfinite(out).all())
+
+
 @pytest.mark.parametrize("value", ["xla", "pallas", "CUDA", "triton"])
 def test_unknown_value_raises(monkeypatch, value):
     monkeypatch.setenv("SENSORIUM_DW_IMPL", value)

@@ -47,7 +47,7 @@ from sensorium_tpu_torch.infer.export import (
     save_exported,
 )
 from sensorium_tpu_torch.infer.predictor import Predictor
-from sensorium_tpu_torch.ops import dw_kernels
+from sensorium_tpu_torch.ops import bn_kernels, dw_kernels
 from sensorium_tpu_torch.parallel import mesh as mesh_lib
 from tests.test_engine import tiny_params
 
@@ -193,8 +193,11 @@ class TestExportForward:
     def test_artifact_calls_the_custom_ops(self, exported0):
         targets = [node.target for node in exported0.program.graph.nodes]
         blocks = len(tiny_params()["nn_module"][1]["core_features"])
-        assert targets.count(torch.ops.sensorium.dw_spatial_fwd.default) == blocks
-        assert targets.count(torch.ops.sensorium.dw_temporal_fwd.default) == blocks
+        # Each block's pw_bn and spatial_bn run inside its depthwise convs.
+        assert targets.count(torch.ops.sensorium.dw_spatial_fwd_bn.default) == blocks
+        assert targets.count(torch.ops.sensorium.dw_temporal_fwd_bn.default) == blocks
+        assert targets.count(torch.ops.sensorium.dw_spatial_fwd.default) == 0
+        assert targets.count(torch.ops.sensorium.dw_temporal_fwd.default) == 0
 
     def test_platforms_other_than_cuda_and_cpu_raise(self, model):
         with pytest.raises(ValueError, match="platforms"):
@@ -314,7 +317,8 @@ class TestExportTrial:
                    for node in module.graph.nodes]
         assert torch.ops.higher_order.scan in targets
         blocks = len(tiny_params()["nn_module"][1]["core_features"])
-        assert targets.count(torch.ops.sensorium.dw_spatial_fwd.default) == blocks  # once, in the scan's body
+        assert targets.count(torch.ops.sensorium.dw_spatial_fwd_bn.default) == blocks  # once, in the scan's body
+        assert targets.count(torch.ops.sensorium.dw_temporal_fwd_bn.default) == blocks
 
     def test_cli_trial_flow(self, ckpt_path, tmp_path, capsys):
         out = tmp_path / "trial.pt2"
@@ -448,7 +452,7 @@ class TestMeshArtifact:
         targets = [node.target for module in graph.modules() if isinstance(module, torch.fx.GraphModule)
                    for node in module.graph.nodes]
         blocks = len(tiny_params()["nn_module"][1]["core_features"])
-        assert targets.count(torch.ops.sensorium.dw_spatial_fwd.default) == blocks * 4  # a forward a replica
+        assert targets.count(torch.ops.sensorium.dw_spatial_fwd_bn.default) == blocks * 4  # a forward a replica
 
     def test_cli_mesh_data_flow(self, ckpt_path, tmp_path, capsys):
         out = tmp_path / "mesh.pt2"
@@ -540,6 +544,8 @@ def _op_cases(dtype):
     x, w, wt = t(2, 3, 9, 8, 8), t(3, 3, 8), t(5, 8)
     dy2 = t(2, 3, 5, 4, 8)
     scale, shift = t(8).float(), t(8).float()
+    bn = (t(8).float(), t(8).float().abs() + 0.5, scale, shift)  # mean, var, scale, bias
+    act = bn_kernels.bn_act_eval_plain(x, *bn, 1e-5, True)  # the eval BN+SiLU the *_bn ops run inside the convs
     return [
         ("dw_spatial_fwd", (x, w, 2), dw_kernels.dw_spatial_plain(x, w, 2)),
         ("dw_temporal_fwd", (x, wt), dw_kernels.dw_temporal_plain(x, wt)),
@@ -548,6 +554,8 @@ def _op_cases(dtype):
         ("dw_temporal_dw", (x, x, 5), dw_kernels.dw_temporal_dw_plain(x, x, 5)),
         ("fused_bn_silu_dw_spatial", (x, scale, shift, w, 1),
          dw_kernels.fused_bn_silu_dw_spatial_plain(x, scale, shift, w, 1)),
+        ("dw_spatial_fwd_bn", (x, w, *bn, 1e-5, 2), dw_kernels.dw_spatial_plain(act, w, 2)),
+        ("dw_temporal_fwd_bn", (x, wt, *bn, 1e-5), dw_kernels.dw_temporal_plain(act, wt)),
     ]
 
 

@@ -81,6 +81,44 @@ def test_eval_forward_matches_jax(hw):
     assert_matches_jax(MODEL_KWARGS, variables, x)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_blocks_run_pw_bn_and_spatial_bn_inside_the_depthwise_convs(monkeypatch, dtype):
+    """An eval forward runs each block's pw_bn and spatial_bn inside its
+    depthwise convs (``ops/conv.py`` ``depthwise_conv_*_bn``), and gives the
+    chain through the same modules' BatchNormAct and conv calls bit for bit;
+    a training forward keeps the chain."""
+    from sensorium_tpu_torch.models import dwiseneuro
+
+    variables = perturbed_variables(MODEL_KWARGS, seed=4)
+    model = DwiseNeuro(**{**MODEL_KWARGS, "dtype": dtype}).eval()
+    model.load_state_dict(from_jax_variables(variables["params"], variables["batch_stats"]), strict=True)
+    calls = {"spatial": 0, "temporal": 0, "spatial_bn": 0, "temporal_bn": 0}
+
+    def counted(name):
+        fn = getattr(dwiseneuro, f"depthwise_conv_{name}")
+
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+
+        monkeypatch.setattr(dwiseneuro, f"depthwise_conv_{name}", call)
+
+    for name in calls:
+        counted(name)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 255, (2, 5, 8, 16, 16)).astype(np.float32))
+    blocks = model.num_blocks
+    with torch.no_grad():
+        folded = model(x)
+        assert calls == {"spatial": 0, "temporal": 0, "spatial_bn": blocks, "temporal_bn": blocks}
+        with monkeypatch.context() as patch:
+            patch.setattr(dwiseneuro, "eval_bn_runs_in_dw", lambda *kernels: False)
+            chain = model(x)
+        assert calls == {"spatial": blocks, "temporal": blocks, "spatial_bn": blocks, "temporal_bn": blocks}
+        model.train()(x, generator=torch.Generator().manual_seed(0))
+        assert calls["spatial"] == 2 * blocks and calls["spatial_bn"] == blocks
+    assert folded.dtype == torch.float32 and torch.equal(folded, chain)
+
+
 def test_learnable_softplus_matches_jax():
     kwargs = {**MODEL_KWARGS, "learnable_softplus": True}
     variables = perturbed_variables(kwargs, seed=2)
@@ -176,6 +214,29 @@ def test_registry_reads_config_dtypes():
         get_nn_module("dwiseneuro", {**MODEL_KWARGS, "dtype": "float16"}, device="cpu")
     with pytest.raises(KeyError):
         get_nn_module("resnet", {}, device="cpu")
+
+
+def test_chip_smoke_bn_calls_are_the_flagship_forwards_bns():
+    """chip_smoke's flagship_bn_calls (phase 9b's shapes, the BN launch
+    counts) name every BatchNormAct of a flagship forward with its (rows, C)
+    and SiLU, read by hooks on a training forward of one 2-frame window."""
+    from sensorium_tpu_torch.models.dwiseneuro import BatchNormAct
+
+    name, params = chip_smoke.FLAGSHIP_NN_MODULE
+    model = get_nn_module(name, {**params, "dtype": "float32"}, device="cpu")
+    seen = {}
+    for module_name, module in model.named_modules():
+        if isinstance(module, BatchNormAct):
+            def record(m, args, module_name=module_name):
+                seen[module_name] = (args[0].numel() // args[0].shape[-1], args[0].shape[-1], m.act)
+
+            module.register_forward_pre_hook(record)
+    size = chip_smoke.FLAGSHIP_ARGUS["inputs_processor"][1]["size"]
+    with torch.no_grad():
+        model.train()(torch.zeros(1, params["in_channels"], 2, *size), generator=torch.Generator().manual_seed(0))
+    calls = chip_smoke.flagship_bn_calls(1, 2)
+    assert {c["name"]: (c["rows"], c["c"], c["act"]) for c in calls} == seen
+    assert len(calls) == 52
 
 
 def test_chip_smoke_flagship_matches_the_config():

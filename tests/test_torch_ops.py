@@ -213,7 +213,24 @@ def test_fwd_launch_geometry_fits_the_card_and_covers_y_once(shape, itemsize):
     assert gx == (-(-n // frames)) * geo["groups"]
 
 
-def emulate_fwd_kernel(x: np.ndarray, w: np.ndarray, stride: int, geo: dict, vec: int) -> np.ndarray:
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", FLAGSHIP_FWD + EDGE_FWD + WALK_FWD, ids=str)
+def test_fwd_launch_geometry_with_the_bn_prologue_adds_a_and_b_alone(shape, itemsize):
+    """With the eval BN prologue the kernel holds its channel tile's a and b
+    beside the weights (two more vectors of 8 * vec floats), and the tiling
+    is the plain kernel's: within a third of an SM at the flagship shapes."""
+    n, h, w, c, k, s = shape
+    plain = dw_kernels.fwd_launch_geometry(n, h, w, c, k, s, itemsize, sms=132)
+    geo = dw_kernels.fwd_launch_geometry(n, h, w, c, k, s, itemsize, sms=132, bn=True)
+    vec = 16 // itemsize
+    assert geo["smem_bytes"] == geo["ring"] * geo["tile_cols"] * 8 * 16 + (k * k + 2) * 8 * vec * 4
+    if shape in FLAGSHIP_FWD:
+        assert geo["smem_bytes"] <= 233_472 // 3 - 1024
+        assert {key: v for key, v in geo.items() if key != "smem_bytes"} == {
+            key: v for key, v in plain.items() if key != "smem_bytes"}
+
+
+def emulate_fwd_kernel(x: np.ndarray, w: np.ndarray, stride: int, geo: dict, vec: int, prologue=None) -> np.ndarray:
     """``dw_spatial_fwd_kernel``'s loops in numpy: each block stages the x
     rows of its bands, one band ahead, into a ring of ``geo["ring"]`` slots
     (row r of band i in slot (i * frame_rows + r + k//2) % ring when the
@@ -221,7 +238,10 @@ def emulate_fwd_kernel(x: np.ndarray, w: np.ndarray, stride: int, geo: dict, vec
     C). Every copy lands as soon as it is issued, so the next band's rows
     overwrite their slots before this band computes. Each unit of ``cols``
     outputs then takes its taps from the ring through the register window.
-    Slots never staged hold NaN, so reading one shows."""
+    Slots never staged hold NaN, so reading one shows. ``prologue`` (the
+    eval BN prologue, elementwise): band i's new rows turn in place after
+    band i + 1's are staged and before band i computes, in-frame cells only,
+    as the kernel's threads turn the cells they copied."""
     n, h, wd, c = x.shape
     k = w.shape[0]
     p, s = k // 2, stride
@@ -235,19 +255,24 @@ def emulate_fwd_kernel(x: np.ndarray, w: np.ndarray, stride: int, geo: dict, vec
         ch0, col0 = ty * chans, tz * col_tile
         ring = np.full((ring_rows, tile_cols, chans), np.nan, np.float32)
 
-        def stage(i):
-            if i >= len(bands):
-                return
+        def new_cells(i):
+            """Band i's cells the ring does not hold yet: (x row, column, whether in the frame)."""
             f, r0, _ = bands[i]
             first = r0 * s - p if walks or i == 0 else (r0 - 1) * s + k - p
             for r in range(first, (r0 + band - 1) * s + k - p):
                 for cc in range(tile_cols):
                     col = col0 * s - p + cc
-                    tile = np.zeros(chans, np.float32)
-                    if 0 <= r < h and 0 <= col < wd:
-                        part = x[f, r, col, ch0 : ch0 + chans]
-                        tile[: part.shape[0]] = part
-                    ring[(i * base_step + r + p) % ring_rows, cc] = tile
+                    yield r, cc, col, 0 <= r < h and 0 <= col < wd
+
+        def stage(i):
+            if i >= len(bands):
+                return
+            for r, cc, col, inside in new_cells(i):
+                tile = np.zeros(chans, np.float32)
+                if inside:
+                    part = x[bands[i][0], r, col, ch0 : ch0 + chans]
+                    tile[: part.shape[0]] = part
+                ring[(i * base_step + r + p) % ring_rows, cc] = tile
 
         wt = np.zeros((k, k, chans), np.float32)
         wt[:, :, : min(chans, c - ch0)] = w[:, :, ch0 : ch0 + chans]
@@ -255,6 +280,11 @@ def emulate_fwd_kernel(x: np.ndarray, w: np.ndarray, stride: int, geo: dict, vec
         units_per_row = col_tile // cols
         for i, (f, r0, r1) in enumerate(bands):
             stage(i + 1)
+            if prologue is not None:
+                for r, cc, _, inside in new_cells(i):
+                    if inside:
+                        slot = (i * base_step + r + p) % ring_rows
+                        ring[slot, cc] = prologue(ring[slot, cc], ch0)
             for u in range((r1 - r0) * units_per_row):
                 a, cu = r0 + u // units_per_row, u % units_per_row
                 b0 = col0 + cu * cols
@@ -288,6 +318,33 @@ def test_fwd_kernel_loops_emulated_match_the_plain_version(shape, itemsize, sms)
     geo = dw_kernels.fwd_launch_geometry(n, h, w, c, k, s, itemsize, sms=sms)
     got = emulate_fwd_kernel(x, wt, s, geo, 16 // itemsize)
     ref = dw_kernels.dw_spatial_plain(torch.from_numpy(x)[None], torch.from_numpy(wt), s)[0].numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", EDGE_FWD + WALK_FWD, ids=str)
+def test_fwd_kernel_loops_with_the_bn_prologue_emulated_match_the_chain(shape, itemsize, sms):
+    """The kernel's loops with the eval BN prologue turning each band's new
+    rows in place (emulated, as above, from the prologue's geometry) give
+    the plain conv of the prologue's output: every in-frame x element turned
+    exactly once, the halo rows a band shares with the last not again, and
+    the zero padding never (the prologue maps 0 to silu(b) != 0)."""
+    n, h, w, c, k, s = shape
+    rng = np.random.default_rng(8)
+    x, wt = rand(rng, n, h, w, c), rand(rng, k, k, c)
+    chans = 8 * (16 // itemsize)  # channels of a channel tile
+    a, b = np.zeros((2, c + chans), np.float32)  # zero past C, as the kernel's a and b
+    a[:c], b[:c] = 1 + 0.2 * rand(rng, c), 1.0 + 0.3 * rand(rng, c)
+
+    def silu(z: np.ndarray) -> np.ndarray:
+        return z / (1 + np.exp(-z))
+
+    geo = dw_kernels.fwd_launch_geometry(n, h, w, c, k, s, itemsize, sms=sms, bn=True)
+    got = emulate_fwd_kernel(x, wt, s, geo, 16 // itemsize,
+                             lambda v, ch0: silu(v * a[ch0 : ch0 + chans] + b[ch0 : ch0 + chans]))
+    act = silu(x * a[:c] + b[:c])
+    ref = dw_kernels.dw_spatial_plain(torch.from_numpy(act)[None], torch.from_numpy(wt), s)[0].numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
